@@ -1,8 +1,8 @@
 """cuda_surf_tpu_torch: the PyTorch + CUDA port of cuda_surf_tpu.
 
-The upright SURF frontend (detect, describe, match) on an NVIDIA H100,
-with hand-written CUDA kernels (csrc/) in place of the JAX package's
-Pallas kernels.  This package imports torch and never jax; the JAX
+The SURF frontend (detect, orientation, describe, match; upright or
+rotated, 64-d or extended 128-d) on an NVIDIA H100, with hand-written
+CUDA kernels (csrc/) in place of the JAX package's Pallas kernels.  This package imports torch and never jax; the JAX
 package beside it is the reference it is tested against.
 """
 
@@ -18,8 +18,10 @@ from .config import SurfConfig, config_from_jax  # noqa: E402
 from .types import Keypoints, Matches  # noqa: E402
 from .frontend import Surf, detect_and_compute  # noqa: E402
 from .ops.matcher import match_keypoints  # noqa: E402
+from .ops.orientation import assign_orientations  # noqa: E402
 
 __all__ = [
     "SurfConfig", "Keypoints", "Matches", "Surf",
-    "detect_and_compute", "match_keypoints", "config_from_jax",
+    "detect_and_compute", "match_keypoints", "assign_orientations",
+    "config_from_jax",
 ]

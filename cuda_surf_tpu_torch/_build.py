@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The sources have a plain C interface and include no PyTorch header, so
-`nvcc` compiles them in seconds into one shared library, which is loaded
-with `ctypes`.  The build runs at the first kernel launch of a process,
-never at import, and is redone when a source's hash changes.  Every C
+`nvcc` compiles them in seconds: one `nvcc -c` per source, all started
+together, then one link into a shared library, which is loaded with
+`ctypes`.  The build runs at the first kernel launch of a process, never
+at import, and is redone when a source's hash changes.  Every C
 entry point returns `cudaGetLastError()` after its launch, and `check`
 raises on a non-zero code.
 """
@@ -27,7 +28,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libsurfkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -35,8 +36,10 @@ _SIGNATURES = {
     "surf_octave_layers": [_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     # layers, mask, ms, oh, ow, pre_t, win(host), stream
     "surf_octave_mask": [_P, _P, _I, _I, _I, _F, _P, _P],
-    # ii, ih, iw, meta, fpar, wtab, K, R, out, stream
-    "surf_describe_upright": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    # ii, ih, iw, meta, fpar, wtab, K, R, upright, osz, out, stream
+    "surf_describe": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # ii, ih, iw, meta, tab, K, out, stream
+    "surf_orient": [_P, _I, _I, _P, _P, _I, _P, _P],
     # d1, d2, valid2, N1, N2, D, splits, part best/second/index,
     # best, second, index, stream
     "surf_best2": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -71,19 +74,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; -> their output, or raise with the
+    output of every command that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    bad = [f"{' '.join(c)} -> {p.returncode}\n{o}"
+           for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+    return "".join(outs)
+
+
 def _build(sources, so: Path, stamp: Path, digest: str) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, p.stem + ".o") for p in sources]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                        for p, o in zip(sources, objs)])
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
     stamp.write_text(digest)
-    return proc.stdout + proc.stderr
+    return log
 
 
 @functools.cache

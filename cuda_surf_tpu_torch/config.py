@@ -18,6 +18,14 @@ import dataclasses
 import functools
 import math
 
+# Orientation constants of the reference (surfd.h:9-16).
+NBIN = 72                        # orientation histogram bins
+WINDOW = 1.0471975511965976      # pi / 3 sliding orientation window
+SEP_ANGLE = 0.08726646259971647  # 2*pi / NBIN
+HWN = 6                          # half window size in bins
+ORADIUS = 9                      # orientation sampling disc radius (in steps)
+ORADIUS_SQ = 81.5
+
 
 @dataclasses.dataclass(frozen=True)
 class SurfConfig:
@@ -120,6 +128,20 @@ class SurfConfig:
     def max_desc_span(self) -> int:
         return self._desc_bounds[1]
 
+    @functools.cached_property
+    def max_ori_span(self) -> int:
+        """Patch half-extent bound for orientation sampling
+        (assignOrientationApprox geometry, surfd.cu:1746-1793)."""
+        best = 0
+        s = 0.5
+        bound = self._max_scale_value * (2.0 if self.doubled else 1.0)
+        while s < bound:
+            pixsi = int(2.0 * s + 1.6)
+            step = int(s + 0.8)
+            best = max(best, ORADIUS * step + pixsi + 1)
+            s += 0.01
+        return best
+
     @property
     def desc_grid(self) -> int:
         """Side length of the descriptor sampling grid."""
@@ -186,6 +208,9 @@ class SurfConfig:
 # The main path: the reference demo's workload as bench.py:57-58 sets it.
 MAIN_CONFIG = dict(noctaves=4, thresh=4.0, upright=True, max_pts=4096,
                    candidates_per_octave=4096)
+# The rotation-invariant path: the main config with upright=False, as
+# bench.py:294-310 times it (`rotated_pair_ms`).
+ROTATED_CONFIG = dict(MAIN_CONFIG, upright=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,20 +252,12 @@ def config_from_jax(obj) -> SurfConfig:
 
 
 def require_slice(cfg: SurfConfig) -> None:
-    """The port covers the upright, non-doubled, non-extended frontend;
-    every other configuration is a later slice (ROADMAP.md Queue 1)."""
-    if not cfg.upright:
-        raise NotImplementedError(
-            "upright=False (orientation + rotated descriptors) is not ported "
-            "yet: ROADMAP.md Queue 1 item 8")
-    if cfg.extended:
-        raise NotImplementedError(
-            "extended=True (128-d descriptors) is not ported yet: "
-            "ROADMAP.md Queue 1 item 8")
+    """The port covers the non-doubled frontend, upright or rotated, 64-d
+    or extended 128-d; doubled mode is a later slice (ROADMAP.md Queue 1)."""
     if cfg.doubled:
         raise NotImplementedError(
             "doubled=True (2x upsampled integral image) is not ported yet: "
-            "ROADMAP.md Queue 1 item 9")
+            "ROADMAP.md Queue 1 item 10")
 
 
 def _round_half_even(x: float) -> int:
@@ -252,3 +269,16 @@ def _round_half_even(x: float) -> int:
     if d < 0.5:
         return f
     return f + (f % 2)
+
+
+def lut1() -> list[float]:
+    """Orientation Gaussian weight LUT (Surfor::initLut, surf.cpp:360-364)."""
+    return [math.exp(-(n + 0.5) / 12.5) for n in range(83)]
+
+
+def bin_centers() -> list[float]:
+    """72 histogram bin lower edges -pi..pi (surf.cpp:85-89)."""
+    out = [-math.pi]
+    for _ in range(1, NBIN):
+        out.append(out[-1] + SEP_ANGLE)
+    return out

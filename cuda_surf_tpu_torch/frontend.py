@@ -1,11 +1,12 @@
 """SURF frontend pipeline (port of cuda_surf_tpu/frontend.py,
-single-frame, upright).
+single-frame).
 
 Mirror of Surfor::detectAndCompute (surf.cpp:205-355): integral image ->
 kernel A (response layers + NMS mask per octave) -> compaction and
-subpixel walk -> makePoint -> kernel B (descriptor rows) -> L2
-normalise.  Matching runs kernel C.  PyTorch runs eagerly, so there is
-nothing to compile; the kernels are built at their first launch.
+subpixel walk -> makePoint -> kernel D (orientation, unless upright) ->
+kernel B (descriptor rows) -> L2 normalise.  Matching runs kernel C.
+PyTorch runs eagerly, so there is nothing to compile; the kernels are
+built at their first launch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .ops.extrema import detect
 from .ops.fused_detect import fused_pyramid
 from .ops.descriptor import describe
 from .ops.matcher import match_keypoints
+from .ops.orientation import assign_orientations
 
 
 def _make_keypoints(ii, cand, cfg: SurfConfig):
@@ -66,8 +68,8 @@ def _make_keypoints(ii, cand, cfg: SurfConfig):
 
 def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
                        compute_descriptors: bool = True):
-    """uint8 (H, W) tensor -> (Keypoints, (max_pts, 64) descriptors), on
-    the image's device."""
+    """uint8 (H, W) tensor -> (Keypoints, (max_pts, nfeatures)
+    descriptors), on the image's device."""
     require_slice(cfg)
     h, w = image.shape
     ii = integral_image(image)
@@ -75,13 +77,17 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
     cand = detect(pyr, cfg.hessian_schedule(h, w), cfg, cand_masks=masks)
     count, valid, x, y, scale, strength, laplace, octave = \
         _make_keypoints(ii, cand, cfg)
+    ori = torch.zeros_like(x)
+    if compute_descriptors and not cfg.upright:
+        ori = assign_orientations(ii, cfg, x, y, scale, valid)
+        ori = torch.where(valid, ori, 0.0)
     kps = Keypoints(x=x, y=y, scale=scale, strength=strength,
-                    laplace=laplace, ori=torch.zeros_like(x), octave=octave,
+                    laplace=laplace, ori=ori, octave=octave,
                     valid=valid, count=count)
     if not compute_descriptors:
         return kps, torch.zeros((cfg.max_pts, cfg.nfeatures),
                                 dtype=torch.float32, device=image.device)
-    desc = describe(ii, cfg, x, y, scale, valid)
+    desc = describe(ii, cfg, x, y, scale, ori, valid)
     desc = torch.where(valid[:, None], desc, 0.0)
     return kps, desc
 

@@ -1,12 +1,21 @@
-"""Write the JAX golden fixture that chip_smoke.py holds the port against.
+"""Write the JAX golden fixtures that chip_smoke.py holds the port against.
 
 Runs the JAX package on the CPU (XLA / gather paths, no Pallas) over the
-main path's 1280x960 input pair (cuda_surf_tpu_torch.io.main_pair) at
-the main-path config, and writes the per-frame keypoint counts, the
-valid keypoints' x / y / scale, and the mean best match score of the
-left -> right matching to cuda_surf_tpu_torch/data/golden_plane_pair.npz.
-The machine with the card has no JAX, so the fixture is made here and
-committed.
+main path's 1280x960 input pair (cuda_surf_tpu_torch.io.main_pair), once
+at the main-path config and once at the rotated config (upright=False),
+and writes the per-frame keypoint counts, the valid keypoints' x / y /
+scale, and the mean best match score of the left -> right matching to
+cuda_surf_tpu_torch/data/golden_plane_pair.npz and
+golden_plane_pair_rotated.npz.  The rotated fixture also holds each valid
+keypoint's orientation (`ori0`, `ori1`), its top-two orientation
+window gap (`gap0`, `gap1`, relative) and the two top windows' angles
+(`top0`, `top1`, (n, 2)), from the port's CPU window helper on the JAX
+keypoints: below a gap of 1e-5 either of the two windows is a right
+answer.  Before it writes them the script holds the JAX orientations to
+those windows (torch_parity.check_orientations: 1e-4 rad to the port's
+choice where the gap is >= 1e-5, to one of the two below it), so the
+gaps are the JAX package's too.  The machine with the card has no JAX,
+so the fixtures are made here and committed.
 
     python tests/make_torch_golden.py
 """
@@ -24,17 +33,24 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
+import torch  # noqa: E402
+
 import cuda_surf_tpu as cst  # noqa: E402
-from cuda_surf_tpu_torch.config import MAIN_CONFIG  # noqa: E402
+from cuda_surf_tpu_torch.config import (  # noqa: E402
+    MAIN_CONFIG, ROTATED_CONFIG, SurfConfig)
 from cuda_surf_tpu_torch.io.synth import MAIN_PAIR, main_pair  # noqa: E402
+from cuda_surf_tpu_torch.ops.integral import integral_image  # noqa: E402
+from cuda_surf_tpu_torch.ops.orientation import (  # noqa: E402
+    assign_orientations_plain, orientation_windows, top2_windows)
+from torch_parity import check_orientations  # noqa: E402
 
-OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "cuda_surf_tpu_torch", "data", "golden_plane_pair.npz")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "cuda_surf_tpu_torch", "data")
 
 
-def main() -> None:
+def write(config: dict, name: str) -> None:
     frames = main_pair()
-    cfg = cst.SurfConfig(**MAIN_CONFIG, wavelet_method="gather",
+    cfg = cst.SurfConfig(**config, wavelet_method="gather",
                          detect_backend="xla")
     surf = cst.Surf(cfg)
     kps, descs = zip(*[surf.detect_and_compute(f) for f in frames])
@@ -44,17 +60,35 @@ def main() -> None:
         counts=np.array([int(k.count) for k in kps], np.int32),
         mean_best=np.float64(np.asarray(m.score)[mv].mean()),
         n_matches=np.int32(mv.sum()),
-        config=np.array(repr(sorted(MAIN_CONFIG.items()))),
+        config=np.array(repr(sorted(config.items()))),
         pair=np.array(repr(sorted(MAIN_PAIR.items()))),
     )
-    for f, k in enumerate(kps):
+    for f, (k, frame) in enumerate(zip(kps, frames)):
         v = np.asarray(k.valid)
-        for name in ("x", "y", "scale"):
-            out[f"{name}{f}"] = np.asarray(getattr(k, name))[v].astype(np.float32)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT}: counts {out['counts'].tolist()}, "
+        names = ("x", "y", "scale") + (() if cfg.upright else ("ori",))
+        for nm in names:
+            out[f"{nm}{f}"] = np.asarray(getattr(k, nm))[v].astype(np.float32)
+        if not cfg.upright:
+            t = lambda a: torch.as_tensor(np.asarray(a))
+            ii = integral_image(t(frame))
+            args = (t(k.x), t(k.y), t(k.scale), t(k.valid))
+            ws, wa = orientation_windows(ii, *args)
+            port = assign_orientations_plain(ii, SurfConfig(**config), *args)
+            near = check_orientations(np.asarray(k.ori), port, ws, wa, v)
+            gap, top = top2_windows(ws, wa)
+            out[f"gap{f}"] = gap.numpy()[v]
+            out[f"top{f}"] = top.numpy()[v]
+            print(f"frame {f}: {int(near.sum())} near ties of {int(v.sum())}")
+    path = os.path.join(DATA, name)
+    os.makedirs(DATA, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}: counts {out['counts'].tolist()}, "
           f"mean best {float(out['mean_best']):.6f}")
+
+
+def main() -> None:
+    write(MAIN_CONFIG, "golden_plane_pair.npz")
+    write(ROTATED_CONFIG, "golden_plane_pair_rotated.npz")
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_surf_tpu.config as jax_config
 from cuda_surf_tpu import SurfConfig as JaxConfig
 from cuda_surf_tpu.io.image import write_pgm, read_pgm as jax_read_pgm
 from cuda_surf_tpu.slam.sequence import render_plane_sequence as jax_render
@@ -27,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("hw", [(120, 160), (240, 320), (960, 1280),
                                 (1080, 1920)])
-@pytest.mark.parametrize("kw", [{}, dict(noctaves=5, init_mask_size=15)])
+@pytest.mark.parametrize("kw", [{}, dict(noctaves=5, init_mask_size=15),
+                                dict(upright=False, extended=True)])
 def test_schedules_equal_jax(hw, kw):
     cj = JaxConfig(**kw)
     ct = cst.config_from_jax(cj)
@@ -39,7 +41,8 @@ def test_schedules_equal_jax(hw, kw):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert a.maximum_borders() == b.maximum_borders()
     for name in ("max_candidates", "max_iradius", "max_desc_span",
-                 "desc_grid", "nfeatures", "max_scale", "sampling"):
+                 "desc_grid", "nfeatures", "max_scale", "sampling",
+                 "max_ori_span"):
         assert getattr(ct, name) == getattr(cj, name), name
 
 
@@ -58,8 +61,16 @@ def test_config_from_jax_round_trips():
     assert cst.config_from_jax(ct) == ct
 
 
-@pytest.mark.parametrize("kw", [dict(upright=False), dict(extended=True),
-                                dict(doubled=True)])
+def test_orientation_constants_equal_jax():
+    from cuda_surf_tpu_torch import config as tc
+    for name in ("NBIN", "WINDOW", "SEP_ANGLE", "HWN", "ORADIUS",
+                 "ORADIUS_SQ"):
+        assert getattr(tc, name) == getattr(jax_config, name), name
+    assert tc.lut1() == jax_config.lut1()
+    assert tc.bin_centers() == jax_config.bin_centers()
+
+
+@pytest.mark.parametrize("kw", [dict(doubled=True)])
 def test_unported_configs_raise(kw):
     cfg = cst.SurfConfig(**kw)
     img = torch.zeros((64, 80), dtype=torch.uint8)

@@ -71,6 +71,57 @@ def describe_scene():
     return img, f32(x), f32(y), f32(scale), valid
 
 
+def circ_diff(a, b):
+    """|a - b| on the circle, in radians."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return np.abs(np.remainder(d + np.pi, 2 * np.pi) - np.pi)
+
+
+def check_orientations(ref, got, win_sums, win_asums, valid, tol=1e-4,
+                       gap=1e-5):
+    """Hold orientations `got` against `ref` on the valid slots, given the
+    (K, 72) window sums of one of them: within `tol` rad on the circle
+    wherever the top-two window gap is >= `gap` relative; on a near tie
+    (gap below that) each may pick either of the two top windows, so each
+    must lie within `tol` of one of their angles.  -> near-tie mask."""
+    ws, wa = (np.asarray(_np(a), np.float64) for a in (win_sums, win_asums))
+    top2 = np.argsort(-ws, axis=1, kind="stable")[:, :2]
+    rows = np.arange(ws.shape[0])[:, None]
+    best = ws[rows, top2]
+    near = (best[:, 0] - best[:, 1]) < gap * np.abs(best[:, 0])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        cand = wa[rows, top2] / best                  # the two windows' angles
+    v = _np(valid).astype(bool)
+    ref, got = _np(ref), _np(got)
+    clear = v & ~near
+    assert circ_diff(ref[clear], got[clear]).max(initial=0) <= tol
+    for a in (ref, got):
+        d = np.minimum(circ_diff(a, cand[:, 0]), circ_diff(a, cand[:, 1]))
+        assert d[v & near].max(initial=0) <= tol
+    return v & near
+
+
+def ring_edge_keypoints(cfg, shape, x, y, scale, ori, valid, ulps=4):
+    """Keypoints with a live descriptor sample whose squared radius
+    rpos^2 + cpos^2 lies within `ulps` float32 ulps of an integer in
+    1..39.  The sample's Gaussian weight is picked by trunc of that
+    radius, a step of ~12 % from one ring to the next, so there one
+    rounding (an FMA that XLA:CPU contracts in the JAX package's turned
+    geometry, none in the port) may move a whole sample to the other
+    ring.  Geometry from the port's `desc_geometry` / `sample_frame`.
+    -> (K,) bool."""
+    from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, sample_frame
+    t = lambda a: torch.as_tensor(np.asarray(_np(a)))
+    geom = desc_geometry(cfg, t(x), t(y), t(scale), t(ori))
+    rpos, cpos, ok, _, _ = sample_frame(cfg, *shape, *geom, t(valid))
+    r2 = (rpos * rpos + cpos * cpos).numpy()
+    ring = np.round(r2)
+    with np.errstate(invalid="ignore"):
+        edge = (np.abs(r2 - ring) <= ulps * np.spacing(ring.astype(np.float32))) \
+            & (ring >= 1) & (ring <= 39)
+    return (edge & ok.numpy()).any(1)
+
+
 def unit_rows(a):
     return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
 
