@@ -1,9 +1,11 @@
 """cuda_surf_tpu_torch: the PyTorch + CUDA port of cuda_surf_tpu.
 
 The SURF frontend (detect, orientation, describe, match; upright or
-rotated, 64-d or extended 128-d) on an NVIDIA H100, with hand-written
-CUDA kernels (csrc/) in place of the JAX package's Pallas kernels.  This package imports torch and never jax; the JAX
-package beside it is the reference it is tested against.
+rotated, 64-d or extended 128-d, doubled or not; one frame or a batch of
+frames per call) on an NVIDIA H100, with hand-written CUDA kernels
+(csrc/) in place of the JAX package's Pallas kernels.  This package
+imports torch and never jax; the JAX package beside it is the reference
+it is tested against.
 """
 
 import torch
@@ -16,12 +18,14 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .config import SurfConfig, config_from_jax  # noqa: E402
 from .types import Keypoints, Matches  # noqa: E402
-from .frontend import Surf, detect_and_compute  # noqa: E402
+from .frontend import (Surf, detect_and_compute,  # noqa: E402
+                       detect_and_compute_batch)
+from .parallel import BatchSurf  # noqa: E402
 from .ops.matcher import match_keypoints  # noqa: E402
 from .ops.orientation import assign_orientations  # noqa: E402
 
 __all__ = [
-    "SurfConfig", "Keypoints", "Matches", "Surf",
-    "detect_and_compute", "match_keypoints", "assign_orientations",
+    "SurfConfig", "Keypoints", "Matches", "Surf", "BatchSurf",
+    "detect_and_compute", "detect_and_compute_batch", "match_keypoints", "assign_orientations",
     "config_from_jax",
 ]

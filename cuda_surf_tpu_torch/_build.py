@@ -5,12 +5,15 @@ The sources have a plain C interface and include no PyTorch header, so
 together, then one link into a shared library, which is loaded with
 `ctypes`.  The build runs at the first kernel launch of a process, never
 at import, and is redone when a source's hash changes.  Every C
-entry point returns `cudaGetLastError()` after its launch, and `check`
-raises on a non-zero code.
+entry point returns `cudaGetLastError()` after its launch; `launch` calls
+one and raises on a non-zero code, and inside `record_launches()` it also
+brackets the call with two CUDA events, which gives a kernel's own device
+time without the eager glue of its wrapper.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -38,6 +41,13 @@ _SIGNATURES = {
     "surf_octave_mask": [_P, _P, _I, _I, _I, _F, _P, _P],
     # ii, ih, iw, meta, fpar, wtab, K, R, upright, osz, out, stream
     "surf_describe": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # ii, nframes, ih, iw, meta, fpar, wtab, K, R, upright, osz, out, stream
+    "surf_describe_stacked": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                              _P],
+    # ii, ih, iw, meta, fpar, wtab, K, sel, count, cap, sd, R, upright, osz,
+    # out, stream
+    "surf_describe_step": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                           _I, _P, _P],
     # ii, ih, iw, meta, tab, K, out, stream
     "surf_orient": [_P, _I, _I, _P, _P, _I, _P, _P],
     # d1, d2, valid2, N1, N2, D, splits, part best/second/index,
@@ -58,7 +68,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in sources + sorted(SRC_DIR.glob("*.cuh")):   # and their headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -127,6 +137,38 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = kernels().lib.surf_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_recorded = None    # inside record_launches(): [(entry, start, end events)]
+
+
+def launch(name: str, *args) -> None:
+    """Call the library's entry point `name`, which launches its kernels on
+    the stream it is given, and raise if the launch was refused."""
+    fn = getattr(kernels().lib, name)
+    if _recorded is None:
+        check(fn(*args), name)
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    check(fn(*args), name)
+    end.record()
+    _recorded.append((name, start, end))
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block every `launch` records a pair of CUDA events on
+    the current stream around its kernels.  Yields the list of (entry
+    name, start, end); read `start.elapsed_time(end)` after a
+    synchronise."""
+    global _recorded
+    _recorded = rec = []
+    try:
+        yield rec
+    finally:
+        _recorded = None
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

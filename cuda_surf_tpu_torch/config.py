@@ -128,6 +128,22 @@ class SurfConfig:
     def max_desc_span(self) -> int:
         return self._desc_bounds[1]
 
+    @functools.lru_cache(maxsize=None)
+    def desc_step_bounds(self, step: int) -> tuple[int, int]:
+        """(max_iradius, max_iscale) over reachable scales whose descriptor
+        sampling step equals `step`: static bounds for the static-step
+        describe kernel.  +1 margins for the 0.01 scan granularity (both
+        are piecewise constant in scale with unit jumps)."""
+        best_rad, best_s = 0, 0
+        s = 0.5
+        while s < self._max_scale_value:
+            st, iscale, rad = self._desc_geometry(s)
+            if st == step:
+                best_rad = max(best_rad, rad)
+                best_s = max(best_s, iscale)
+            s += 0.01
+        return best_rad + 1, best_s + 1
+
     @functools.cached_property
     def max_ori_span(self) -> int:
         """Patch half-extent bound for orientation sampling
@@ -211,6 +227,12 @@ MAIN_CONFIG = dict(noctaves=4, thresh=4.0, upright=True, max_pts=4096,
 # The rotation-invariant path: the main config with upright=False, as
 # bench.py:294-310 times it (`rotated_pair_ms`).
 ROTATED_CONFIG = dict(MAIN_CONFIG, upright=False)
+# Doubled mode (the frame upsampled 2x before the integral image), upright
+# and rotated, at the main config's capacities.
+DOUBLED_CONFIG = dict(MAIN_CONFIG, doubled=True)
+DOUBLED_ROTATED_CONFIG = dict(ROTATED_CONFIG, doubled=True)
+# Frames per call of the batch path, as bench.py's frames-per-second metric.
+BATCH_FRAMES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,15 +271,6 @@ def config_from_jax(obj) -> SurfConfig:
     carrying them) by attribute name; the TPU-only knobs are left behind."""
     return SurfConfig(**{f.name: getattr(obj, f.name)
                          for f in dataclasses.fields(SurfConfig)})
-
-
-def require_slice(cfg: SurfConfig) -> None:
-    """The port covers the non-doubled frontend, upright or rotated, 64-d
-    or extended 128-d; doubled mode is a later slice (ROADMAP.md Queue 1)."""
-    if cfg.doubled:
-        raise NotImplementedError(
-            "doubled=True (2x upsampled integral image) is not ported yet: "
-            "ROADMAP.md Queue 1 item 10")
 
 
 def _round_half_even(x: float) -> int:

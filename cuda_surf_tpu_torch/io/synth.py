@@ -25,6 +25,12 @@ def main_pair() -> np.ndarray:
     return render_plane_sequence(**MAIN_PAIR)[0]
 
 
+def main_batch(n_frames: int) -> np.ndarray:
+    """uint8 (n_frames, 960, 1280): the batch path's input, the main pair's
+    sequence continued (frames 0 and 1 are the main pair)."""
+    return render_plane_sequence(**dict(MAIN_PAIR, n_frames=n_frames))[0]
+
+
 class Intrinsics(NamedTuple):
     """Pinhole intrinsics (same fields as cuda_surf_tpu.slam.tracking)."""
     fx: float

@@ -9,7 +9,9 @@ unnormalised rows from kernel B's wrapper
 (`patch_wavelets.descriptor_rows`) and L2-normalises them.
 `_describe_chunk` is kernel B's plain twin: the gather formulation of the
 JAX package's `_describe_chunk`, with the bilinear binning as a one-hot
-contraction.
+contraction.  With a per-keypoint `frame` index the integral image is a
+(B, ih, iw) stack of B frames': every keypoint reads its own frame only,
+and its border tests are frame-local.
 
 Rounding: `torch.round` is half-to-even, as `jnp.round` is.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import SurfConfig, require_slice
+from ..config import SurfConfig
 from .integral import wavelet_dx, wavelet_dy
 
 
@@ -26,8 +28,15 @@ def desc_geometry(cfg: SurfConfig, x, y, scale, ori):
     """Per-keypoint sampling geometry (describeUR*, surfd.cu:1373-1387;
     rotated x1.4 at surfd.cu:2428) -> (ix, iy, step, iscale, iradius,
     fracr, fracc, spacing, sine, cose).  Upright, `ori` is ignored and
-    sine and cose are None: the sample frame is the image frame."""
-    work = 1.65 * scale
+    sine and cose are None: the sample frame is the image frame.  In
+    doubled mode the integral image is the 2x upsampled frame's, so x and
+    y double and the window is 3.3 scale (describe, descriptor.py:58-62 of
+    the JAX package)."""
+    if cfg.doubled:
+        x, y = 2 * x, 2 * y
+        work = 3.3 * scale
+    else:
+        work = 1.65 * scale
     step = torch.clamp(torch.round(work * 0.5).to(torch.int32), min=1)
     ix = torch.round(x).to(torch.int32)
     iy = torch.round(y).to(torch.int32)
@@ -46,13 +55,15 @@ def desc_geometry(cfg: SurfConfig, x, y, scale, ori):
     return ix, iy, step, iscale, iradius, fracr, fracc, spacing, sine, cose
 
 
-def describe(ii: torch.Tensor, cfg: SurfConfig, x, y, scale, ori, valid):
+def describe(ii: torch.Tensor, cfg: SurfConfig, x, y, scale, ori, valid,
+             frame=None):
     """-> (K, nfeatures) float32 L2-normalised descriptors; `ori` (K,)
-    in radians, ignored when upright."""
-    require_slice(cfg)
+    in radians, ignored when upright.  `frame` (K,) int32: `ii` is a
+    (B, ih, iw) stack and keypoint k lies in frame `frame[k]`, its x and y
+    frame-local."""
     from .patch_wavelets import descriptor_rows  # it imports this module
     rows = descriptor_rows(ii, cfg, *desc_geometry(cfg, x, y, scale, ori),
-                           valid)
+                           valid, frame=frame)
     return l2_normalize(rows)
 
 
@@ -92,10 +103,14 @@ def sample_frame(cfg: SurfConfig, ih, iw, ix, iy, step, iscale, iradius,
 
 
 def _describe_chunk(ii, cfg: SurfConfig, ih, iw, ix, iy, step, iscale,
-                    iradius, fracr, fracc, spacing, sine, cose, valid):
+                    iradius, fracr, fracc, spacing, sine, cose, valid,
+                    base=None):
     """Kernel B's plain twin on a chunk of k keypoints -> (k, nfeatures)
     unnormalised rows.  Samples the static (2R+1)^2 grid and masks it to
-    each keypoint's own window, as the JAX package does."""
+    each keypoint's own window, as the JAX package does.  `ii` is
+    (rows, iw); `base` (k,) is the row at which each keypoint's (ih, iw)
+    frame starts in it: the border tests use the frame-local row, the
+    reads the row plus `base`."""
     wsz = cfg.desc_wsz
     dev = ii.device
     rpos, cpos, ok, r, c = sample_frame(cfg, ih, iw, ix, iy, step, iscale,
@@ -108,6 +123,8 @@ def _describe_chunk(ii, cfg: SurfConfig, ih, iw, ix, iy, step, iscale,
     # lookup2[n] = exp(-(n+.5)/8) (surf.cpp:366-370)
     weight = torch.exp(-(torch.clamp(widx, 0, 39) + 0.5) * 0.125)
     rc = torch.clamp(r, s, ih - s - 2).long()
+    if base is not None:
+        rc = rc + base[:, None].long()
     cc = torch.clamp(c, s, iw - s - 2).long()
     sl = s.long()
     dxx = weight * wavelet_dx(ii, cc, rc, sl).to(torch.float32) * 0.003921568627
@@ -156,11 +173,19 @@ CHUNK = 256
 
 
 def describe_plain(ii: torch.Tensor, cfg: SurfConfig, ix, iy, step, iscale,
-                   iradius, fracr, fracc, spacing, sine, cose, valid):
-    """Kernel B's plain twin over all keypoints, in chunks of CHUNK."""
-    ih, iw = ii.shape
+                   iradius, fracr, fracc, spacing, sine, cose, valid,
+                   frame=None):
+    """Kernel B's plain twin over all keypoints, in chunks of CHUNK.
+    With `frame` (K,), `ii` is a (B, ih, iw) stack of frames."""
+    ih, iw = ii.shape[-2:]
+    base = None
+    if frame is not None:
+        ii = ii.reshape(-1, iw)
+        # a slot's frame outside [0, B) is never read: masked, and clamped
+        base = torch.clamp(frame, 0, ii.shape[0] // ih - 1) * ih
+        valid = valid & (frame >= 0) & (frame < ii.shape[0] // ih)
     args = (ix, iy, step, iscale, iradius, fracr, fracc, spacing, sine, cose,
-            valid)
+            valid, base)
     parts = [_describe_chunk(ii, cfg, ih, iw,
                              *[None if a is None else a[k0:k0 + CHUNK]
                                for a in args])

@@ -1,5 +1,6 @@
 """3x3x3 non-max extrema detection + iterative subpixel interpolation
-(port of cuda_surf_tpu/ops/extrema.py, single-frame, sparse fit).
+(port of cuda_surf_tpu/ops/extrema.py, sparse fit; one frame or the
+union of a batch's frames).
 
 Re-derivation of findMaximumWithInterp (surfd.cu:676-832), fitQuadrat
 (surfd.cu:942-988) and solveLinearSystem (surfd.cu:835-887):
@@ -157,27 +158,41 @@ def fit_sparse(resp_flat: torch.Tensor, lin: torch.Tensor,
                             h_sr, h_sc, h_rc, c)
 
 
-def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None):
+def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
+           nframes: int = 1):
     """All-octave detection: NMS mask -> global compaction -> batched
     interpolation walk.  Returns a dict of (cap,) tensors: valid, nx, ny,
     ns, strength, octave (octave-local interpolated coords, ready for
-    makePoint scaling) and the candidate count.
+    makePoint scaling), frame, and the candidate count.
 
     `cand_masks` are the per-octave (ms, oh, ow) bool NMS masks that
     `fused_detect.fused_pyramid` returns with the layers.
+
+    `nframes=B` stacks frames: every `pyr[o]` and `cand_masks[o]` carries
+    a leading (B, ...) axis, and ONE compaction and ONE walk run over the
+    union of the B frames' candidates, so their hundreds of small
+    launches are paid once per batch and not once per frame.  The flat
+    layout is frame-major, [frame0: oct0..octN | frame1: ...], so each
+    frame's block is the single-frame layout; the capacity and the walk's
+    active set scale to B * cap, and `frame` holds each candidate's frame.
     """
     noct = len(pyr)
-    cap = cfg.max_candidates if cap is None else cap
+    B = nframes
+    cap = (cfg.max_candidates if cap is None else cap) * B
     dev = pyr[0].device
     masks, offs, shapes = [], [0], []
     for o in range(noct):
         resp = pyr[o]
-        masks.append(cand_masks[o].reshape(-1))
-        offs.append(offs[-1] + resp.numel())
-        shapes.append(tuple(resp.shape))
-    mask = torch.cat(masks)
-    resp_flat = torch.cat([r.reshape(-1) for r in pyr])
-    total = offs[-1]
+        masks.append(cand_masks[o].reshape(B, -1))
+        offs.append(offs[-1] + resp.numel() // B)
+        shapes.append(tuple(resp.shape[-3:]))
+    mask = torch.cat(masks, 1).reshape(-1)
+    resp_flat = torch.cat([r.reshape(B, -1) for r in pyr], 1).reshape(-1)
+    total_f = offs[-1]          # per-frame element count
+    total = total_f * B
+    if total >= 2 ** 31:
+        raise ValueError(f"detect: {B} frames of {total_f} responses "
+                         "overflow the int32 candidate index")
 
     lin0 = torch.arange(total, dtype=torch.int32, device=dev)
     count, valid, lin = compact(mask, cap, lin0)
@@ -199,11 +214,19 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None):
     btab = consts[4 * noct:4 * noct + len(btab)]
     fit_offsets = consts[4 * noct + len(btab):].reshape(3, len(_FIT_OFFSETS))
 
+    # (the frame block first, then the single-frame octave decode on the
+    # frame-relative index; the fit gathers keep the global index)
+    if B > 1:
+        frame = lin // total_f
+        rel_lin = lin - frame * total_f
+    else:
+        frame = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        rel_lin = lin
     octv = torch.zeros((cap,), dtype=torch.int32, device=dev)
     for o in range(1, noct):
-        octv += (lin >= offs[o]).to(torch.int32)
+        octv += (rel_lin >= offs[o]).to(torch.int32)
     oh_t, ow_t, off_t, octave_t = octab[:, octv.long()]
-    rel = lin - off_t
+    rel = rel_lin - off_t
     s_idx = rel // (oh_t * ow_t)
     rem = rel - s_idx * oh_t * ow_t
     r = rem // ow_t
@@ -271,4 +294,4 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None):
     ny = octave * (r_fit.to(torch.float32) + off[:, 1])
     nx = octave * (c_fit.to(torch.float32) + off[:, 2])
     return dict(valid=good, nx=nx, ny=ny, ns=ns, strength=strength,
-                octave=octv, count=count)
+                octave=octv, frame=frame, count=count)

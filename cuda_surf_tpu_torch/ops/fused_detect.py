@@ -96,16 +96,15 @@ def fused_octave(ii: torch.Tensor, plan: dict, cfg: SurfConfig):
     layers = torch.empty((ms, oh, ow), dtype=torch.float32, device=ii.device)
     mask = torch.empty((ms, oh, ow), dtype=torch.bool, device=ii.device)
     pre_t = float(np.float32(0.8) * np.float32(cfg.thresh))
-    lib = _build.kernels().lib
     with torch.cuda.device(ii.device):
         st = _build.stream(ii.device)
-        _build.check(lib.surf_octave_layers(
-            _build.ptr(ii), ii.shape[1], _build.ptr(layers), ms, oh, ow,
-            plan["d"], RR, plan["geom"].ctypes.data, plan["norm"].ctypes.data,
-            st), "surf_octave_layers")
-        _build.check(lib.surf_octave_mask(
-            _build.ptr(layers), _build.ptr(mask), ms, oh, ow, pre_t,
-            plan["win"].ctypes.data, st), "surf_octave_mask")
+        _build.launch(
+            "surf_octave_layers", _build.ptr(ii), ii.shape[1],
+            _build.ptr(layers), ms, oh, ow, plan["d"], RR,
+            plan["geom"].ctypes.data, plan["norm"].ctypes.data, st)
+        _build.launch(
+            "surf_octave_mask", _build.ptr(layers), _build.ptr(mask), ms, oh,
+            ow, pre_t, plan["win"].ctypes.data, st)
     fused_octave.launches += 1
     return layers, mask
 

@@ -70,11 +70,11 @@ def fused_best2(desc1: torch.Tensor, desc2: torch.Tensor,
         ps = torch.empty_like(pb)
         pi = torch.empty((splits, N1), dtype=torch.int32, device=d1.device)
     with torch.cuda.device(d1.device):
-        _build.check(_build.kernels().lib.surf_best2(
-            _build.ptr(d1), _build.ptr(d2), _build.ptr(v2), N1, N2, D, splits,
-            _build.ptr(pb), _build.ptr(ps), _build.ptr(pi), _build.ptr(best),
-            _build.ptr(second), _build.ptr(index), _build.stream(d1.device)),
-            "surf_best2")
+        _build.launch(
+            "surf_best2", _build.ptr(d1), _build.ptr(d2), _build.ptr(v2), N1,
+            N2, D, splits, _build.ptr(pb), _build.ptr(ps), _build.ptr(pi),
+            _build.ptr(best), _build.ptr(second), _build.ptr(index),
+            _build.stream(d1.device))
     fused_best2.launches += 1
     return best, second, index
 

@@ -56,9 +56,13 @@ def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < 0, -r, r)
 
 
-def orient_geometry(x, y, scale):
+def orient_geometry(x, y, scale, doubled: bool = False):
     """-> (cx, cy, step, pixsi) int32: the disc's centre, its sample
-    spacing trunc(scale + 0.8) and the Haar size trunc(2 scale + 1.6)."""
+    spacing trunc(scale + 0.8) and the Haar size trunc(2 scale + 1.6).
+    In doubled mode the integral image is the 2x upsampled frame's, so x,
+    y and scale double first (orientation.py:56-57 of the JAX package)."""
+    if doubled:
+        x, y, scale = 2 * x, 2 * y, 2 * scale
     pixsi = torch.trunc(2 * scale + _f32(1.6)).to(torch.int32)
     step = torch.trunc(scale + _f32(0.8)).to(torch.int32)
     return (torch.round(x).to(torch.int32), torch.round(y).to(torch.int32),
@@ -173,10 +177,11 @@ def window_sums(sums: torch.Tensor, tab: dict):
     return win_sums, win_asums
 
 
-def orientation_windows(ii: torch.Tensor, x, y, scale, valid):
+def orientation_windows(ii: torch.Tensor, x, y, scale, valid,
+                        doubled: bool = False):
     """-> (win_sums, win_asums), each (K, NBIN), of the plain twin."""
     tab = tables(ii.device)
-    geom = orient_geometry(x, y, scale) + (valid,)
+    geom = orient_geometry(x, y, scale, doubled) + (valid,)
     K = x.shape[0]
     parts = [_histogram_chunk(ii, tab["lut"], *[a[k0:k0 + CHUNK] for a in geom])
              for k0 in range(0, K, CHUNK)]
@@ -199,7 +204,8 @@ def top2_windows(win_sums: torch.Tensor, win_asums: torch.Tensor):
 def assign_orientations_plain(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
                               valid) -> torch.Tensor:
     """Kernel D's plain twin -> (K,) float32 angles, 0 on invalid slots."""
-    win_sums, win_asums = orientation_windows(ii, x, y, scale, valid)
+    win_sums, win_asums = orientation_windows(ii, x, y, scale, valid,
+                                              cfg.doubled)
     sel = torch.argmax(win_sums, dim=1, keepdim=True)  # first maximum
     ori = (torch.gather(win_asums, 1, sel) / torch.gather(win_sums, 1, sel))
     return torch.where(valid, ori[:, 0], 0.0)
@@ -216,16 +222,16 @@ def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
                          f"{ii.device}")
     _build.require_cuda(ii, "ii", torch.int32)
     K = x.shape[0]
-    cx, cy, step, pixsi = orient_geometry(x, y, scale)
+    cx, cy, step, pixsi = orient_geometry(x, y, scale, cfg.doubled)
     meta = torch.stack([cx, cy, step, pixsi, valid.to(torch.int32)]
                        ).to(torch.int32).contiguous()
     ftab = tables(ii.device)["packed"]
     out = torch.empty((K,), dtype=torch.float32, device=ii.device)
     ih, iw = ii.shape
     with torch.cuda.device(ii.device):
-        _build.check(_build.kernels().lib.surf_orient(
-            _build.ptr(ii), ih, iw, _build.ptr(meta), _build.ptr(ftab), K,
-            _build.ptr(out), _build.stream(ii.device)), "surf_orient")
+        _build.launch("surf_orient", _build.ptr(ii), ih, iw,
+                      _build.ptr(meta), _build.ptr(ftab), K, _build.ptr(out),
+                      _build.stream(ii.device))
     assign_orientations.launches += 1
     return out
 

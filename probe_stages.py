@@ -1,4 +1,5 @@
-"""Per-stage cost of one frame of the port's two paths on one NVIDIA GPU.
+"""Per-stage cost of one frame of the port's pair paths, and of one batch
+of frames, on one NVIDIA GPU.
 
 Splits `frontend.detect_and_compute` on frame 0 of the 1280x960 main pair
 (cuda_surf_tpu_torch.io.main_pair, on the card) into its stages, at the
@@ -18,7 +19,15 @@ stage runs on the outputs of the stages before it.  For each it prints
 and for the whole frame the device busy share, device_us over ms.  One
 JSON object per stage, then a markdown table of both paths.
 
-    python3 probe_stages.py [--runs 30]
+Then the batch path, `frontend.detect_and_compute_batch` on the
+BATCH_FRAMES frames of cuda_surf_tpu_torch.io.main_batch at the main
+config, split the same way (integral images, kernel A on every frame,
+the stacked detection, makePoint + the spread to (B, max_pts), descriptor
+geometry, kernel B on the stacked frames, normalisation, the whole batch),
+with ms and device µs also per frame, and, with --doubled, the two
+doubled pair paths like the first table.
+
+    python3 probe_stages.py [--runs 30] [--doubled]
 
 With no CUDA device it exits with code 2 before printing any result.
 """
@@ -34,9 +43,13 @@ import sys
 import torch
 
 from cuda_surf_tpu_torch import SurfConfig
-from cuda_surf_tpu_torch.config import MAIN_CONFIG, ROTATED_CONFIG
-from cuda_surf_tpu_torch.frontend import _make_keypoints, detect_and_compute
-from cuda_surf_tpu_torch.io import main_pair
+from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
+                                        DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
+                                        ROTATED_CONFIG)
+from cuda_surf_tpu_torch.frontend import (_batch_pyramids, _make_keypoints,
+                                          _spread_frames, detect_and_compute,
+                                          detect_and_compute_batch)
+from cuda_surf_tpu_torch.io import main_batch
 from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, l2_normalize
 from cuda_surf_tpu_torch.ops.extrema import detect
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
@@ -86,7 +99,7 @@ def stages(cfg: SurfConfig, img: torch.Tensor):
     """[(name, fn)] of one frame, each fn on fixed earlier outputs."""
     h, w = img.shape
     sched = cfg.hessian_schedule(h, w)
-    ii = integral_image(img)
+    ii = integral_image(img, cfg.doubled)
     pyr, masks = fused_pyramid(ii, cfg, h, w)
     cand = detect(pyr, sched, cfg, cand_masks=masks)
     _, valid, x, y, scale, *_ = _make_keypoints(ii, cand, cfg)
@@ -95,7 +108,7 @@ def stages(cfg: SurfConfig, img: torch.Tensor):
     ori = torch.zeros_like(x) if cfg.upright else orient()
     geom = desc_geometry(cfg, x, y, scale, ori)
     rows = descriptor_rows(ii, cfg, *geom, valid)
-    out = [("integral image", lambda: integral_image(img)),
+    out = [("integral image", lambda: integral_image(img, cfg.doubled)),
            ("kernel A, all octaves", lambda: fused_pyramid(ii, cfg, h, w)),
            ("detect: compaction + walk",
             lambda: detect(pyr, sched, cfg, cand_masks=masks)),
@@ -111,30 +124,69 @@ def stages(cfg: SurfConfig, img: torch.Tensor):
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--runs", type=int, default=30)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("probe_stages: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    img = torch.as_tensor(main_pair()[0]).cuda()
+def batch_stages(cfg: SurfConfig, imgs: torch.Tensor):
+    """[(name, fn)] of one batch, each fn on fixed earlier outputs."""
+    B, h, w = imgs.shape
+    sched = cfg.hessian_schedule(h, w)
+    integrals = lambda: torch.stack([integral_image(im, cfg.doubled)
+                                     for im in imgs])
+    ii = integrals()
+    pyr, masks = _batch_pyramids(ii, cfg, h, w)
+    cand = detect(pyr, sched, cfg, cand_masks=masks, nframes=B)
+    points = lambda: _make_keypoints(ii, cand, cfg)
+    _, valid_u, *fields, fid = points()
+    flat = lambda a: a.reshape(-1)
+    _, valid, x, y, scale, *_ = (flat(a) for a in _spread_frames(
+        valid_u, fid, fields, B, cfg.max_pts))
+    ori = torch.zeros_like(x)
+    frame = torch.arange(B, dtype=torch.int32,
+                         device=imgs.device).repeat_interleave(cfg.max_pts)
+    geom = desc_geometry(cfg, x, y, scale, ori)
+    rows = descriptor_rows(ii, cfg, *geom, valid, frame=frame)
+
+    def spread():
+        _, v, *f, i = points()
+        return _spread_frames(v, i, f, B, cfg.max_pts)
+
+    return [("integral images", integrals),
+            ("kernel A, all octaves and frames + stack",
+             lambda: _batch_pyramids(ii, cfg, h, w)),
+            ("detect: compaction + walk on the union",
+             lambda: detect(pyr, sched, cfg, cand_masks=masks, nframes=B)),
+            ("makePoint + Laplacian + spread", spread),
+            ("descriptor geometry",
+             lambda: desc_geometry(cfg, x, y, scale, ori)),
+            ("kernel B rows, stacked",
+             lambda: descriptor_rows(ii, cfg, *geom, valid, frame=frame)),
+            ("normalise",
+             lambda: torch.where(valid[:, None], l2_normalize(rows), 0.0)),
+            ("one batch, whole", lambda: detect_and_compute_batch(imgs, cfg))]
+
+
+def probe(path, name, fn, runs, card, whole, per=1):
+    ms = event_ms(fn, runs)
+    ops, us = device_ops(fn)
+    row = dict(path=path, stage=name, ms=ms, device_ops=ops, device_us=us,
+               card=card)
+    if per > 1:
+        row.update(frames=per, ms_per_frame=ms / per,
+                   device_ops_per_frame=None if ops is None else ops / per,
+                   device_us_per_frame=None if us is None else us / per)
+    if name == whole and us is not None:
+        row["busy_share"] = us / 1e3 / ms
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def pair_table(paths, img, runs, card):
     table = {}
-    for path, config in (("upright", MAIN_CONFIG), ("rotated", ROTATED_CONFIG)):
+    for path, config in paths:
         for name, fn in stages(SurfConfig(**config), img):
-            ms = event_ms(fn, args.runs)
-            ops, us = device_ops(fn)
-            row = dict(path=path, stage=name, ms=ms, device_ops=ops,
-                       device_us=us, card=card)
-            if name == "one frame, whole" and us is not None:
-                row["busy_share"] = us / 1e3 / ms
-            print(json.dumps(row), flush=True)
-            table.setdefault(name, {})[path] = row
-    print(f"\n{card}; CUDA events, median of {args.runs}; torch.profiler\n")
-    print("| Stage | upright ms | ops | device µs | rotated ms | ops | device µs |")
+            table.setdefault(name, {})[path] = probe(
+                path, name, fn, runs, card, "one frame, whole")
+    a, b = (p for p, _ in paths)
+    print(f"\n{card}; CUDA events, median of {runs}; torch.profiler\n")
+    print(f"| Stage | {a} ms | ops | device µs | {b} ms | ops | device µs |")
     print("|---|---|---|---|---|---|---|")
     cell = lambda r: ("— | — | —" if r is None else
                       f"{r['ms']:.3f} | {r['device_ops']} | "
@@ -142,7 +194,46 @@ def main() -> int:
                          else f"{r['device_us']:.1f}"))
     for name in sorted(table, key=ORDER.index):
         r = table[name]
-        print(f"| {name} | {cell(r.get('upright'))} | {cell(r.get('rotated'))} |")
+        print(f"| {name} | {cell(r.get(a))} | {cell(r.get(b))} |")
+    print(flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--runs", type=int, default=30)
+    ap.add_argument("--doubled", action="store_true",
+                    help="also the two doubled pair paths")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("probe_stages: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    imgs = torch.as_tensor(main_batch(BATCH_FRAMES)).cuda()
+    pair_table((("upright", MAIN_CONFIG), ("rotated", ROTATED_CONFIG)),
+               imgs[0], args.runs, card)
+    if args.doubled:
+        pair_table((("doubled", DOUBLED_CONFIG),
+                    ("doubled rotated", DOUBLED_ROTATED_CONFIG)),
+                   imgs[0], args.runs, card)
+    B = imgs.shape[0]
+    runs = max(args.runs // 3, 5)
+    rows = [probe("batch", name, fn, runs, card, "one batch, whole", per=B)
+            for name, fn in batch_stages(SurfConfig(**MAIN_CONFIG), imgs)]
+    print(f"\n{card}; batch of {B} frames; CUDA events, median of {runs}; "
+          "torch.profiler\n")
+    print("| Stage | batch ms | ops | device µs | ms / frame | ops / frame "
+          "| device µs / frame |")
+    print("|---|---|---|---|---|---|---|")
+    for r in rows:
+        us = r["device_us"]
+        print(f"| {r['stage']} | {r['ms']:.3f} | {r['device_ops']} | "
+              + ("— | " if us is None else f"{us:.1f} | ")
+              + f"{r['ms_per_frame']:.3f} | "
+              + ("— | —" if us is None else
+                 f"{r['device_ops_per_frame']:.1f} | "
+                 f"{r['device_us_per_frame']:.1f}") + " |")
     return 0
 
 

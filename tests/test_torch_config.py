@@ -70,16 +70,6 @@ def test_orientation_constants_equal_jax():
     assert tc.bin_centers() == jax_config.bin_centers()
 
 
-@pytest.mark.parametrize("kw", [dict(doubled=True)])
-def test_unported_configs_raise(kw):
-    cfg = cst.SurfConfig(**kw)
-    img = torch.zeros((64, 80), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cst.detect_and_compute(img, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cst.Surf(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("n,cap,p", [(50, 16, 0.5), (300, 64, 0.1),
                                      (40, 64, 0.3), (10, 4, 0.0)])
 def test_compact_matches_jax(n, cap, p):

@@ -13,7 +13,12 @@ contraction); kernel B, in each of its four modes (upright / rotated x
 1e-5, indices equal wherever best - second >= 1e-5, exact ties to the
 smaller index; kernel D orientations within 1e-4 rad wherever the
 top-two window gap is >= 1e-5 relative, one of the two top windows below
-that, and bit-identical across launches.
+that, and bit-identical across launches.  Kernel B on stacked frames:
+rows equal bit for bit to the single-frame kernel's on each frame, and the
+twin with the frame offset at row cosine >= 0.99999.  The static-step
+kernel: the taken mask equal to the twin's and rows equal bit for bit to
+kernel B's.  Doubled mode: kernel A bit-exact, B and D at the tolerances
+above, on the 2x upsampled integral image.
 """
 
 import numpy as np
@@ -31,7 +36,11 @@ from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
 from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
                                                  assign_orientations_plain,
                                                  orientation_windows)
-from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows
+from cuda_surf_tpu_torch.ops import patch_wavelets as tpw
+from cuda_surf_tpu_torch.ops.patch_wavelets import (descriptor_rows,
+                                                    single_rows, stacked_rows,
+                                                    step_rows,
+                                                    step_rows_plain)
 from torch_parity import (assert_keypoints_match, check_orientations,
                           cuda_device, describe_scene,  # noqa: F401
                           kron_image, match_sets, row_cosines, unit_rows)
@@ -243,3 +252,155 @@ def test_rotated_and_extended_slice_on_card_match_cpu(cuda_device, mode):
     rows = mc.valid.numpy() & ~near[0] & ~near[1][ic] & ~near[1][ig]
     assert rows.sum() > 50
     assert np.abs(mc.score.numpy() - mg.score.cpu().numpy())[rows].max() <= 2e-5
+
+
+def _stack_scene(device, upright):
+    """Three 120x160 frames and 21 keypoints per frame, some at the top and
+    bottom edges (their windows would reach into the next frame's rows)."""
+    rng = np.random.default_rng(9)
+    imgs = rng.integers(0, 256, (3, 120, 160), np.uint8)
+    ii = torch.stack([integral_image(torch.as_tensor(f, device=device))
+                      for f in imgs])
+    ys = [0.4, 3.2, 9.0, 60.5, 111.3, 117.6, 119.9]
+    xs = [5.5, 80.2, 155.1]
+    y, x = (a.ravel().astype(np.float32)
+            for a in np.meshgrid(ys, xs, indexing="ij"))
+    scale = np.resize(np.float32([2.0, 3.5, 6.0, 9.0]), y.shape)
+    ori = rng.uniform(-3, 3, y.shape).astype(np.float32)
+    cfg = cst.SurfConfig(noctaves=4, upright=upright, max_pts=y.size)
+    t = lambda a: torch.as_tensor(a, device=device).repeat(3)
+    geom = desc_geometry(cfg, t(x), t(y), t(scale), t(ori))
+    K = y.size
+    frame = torch.arange(3, dtype=torch.int32,
+                         device=device).repeat_interleave(K)
+    valid = torch.ones(3 * K, dtype=torch.bool, device=device)
+    valid[5] = False
+    return cfg, ii, geom, valid, frame, K
+
+
+@pytest.mark.parametrize("upright", [True, False], ids=["upright", "rotated"])
+def test_stacked_kernel_b_matches_twin_and_single_frame_rows(cuda_device,
+                                                             upright):
+    cfg, ii, geom, valid, frame, K = _stack_scene(cuda_device, upright)
+    before = stacked_rows.launches
+    rows = descriptor_rows(ii, cfg, *geom, valid, frame=frame)
+    torch.cuda.synchronize()
+    assert stacked_rows.launches == before + 1
+    assert torch.equal(rows, stacked_rows(ii, cfg, *geom, valid, frame=frame))
+    twin = describe_plain(ii, cfg, *geom, valid, frame=frame)
+    live = (twin.abs().sum(1) > 0).cpu().numpy()
+    assert live.sum() > 2 * K and not rows[5].any()
+    assert row_cosines(rows.cpu().numpy()[live],
+                       twin.cpu().numpy()[live]).min() >= 0.99999
+    assert not rows.cpu().numpy()[~live].any()
+    for f in range(3):
+        sl = slice(f * K, (f + 1) * K)
+        own = single_rows(ii[f], cfg, *[g if g is None else g[sl]
+                                        for g in geom], valid[sl])
+        assert torch.equal(rows[sl], own), f
+    # a frame index outside the stack is masked, never read
+    bad = frame.clone()
+    bad[:K], bad[K:2 * K] = -1, 3
+    out = stacked_rows(ii, cfg, *geom, valid, frame=bad)
+    torch.cuda.synchronize()
+    assert not out[:2 * K].any() and torch.equal(out[2 * K:], rows[2 * K:])
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(upright=False),
+                                  dict(extended=True)],
+                         ids=["upright64", "rotated64", "upright128"])
+def test_step_kernel_matches_twin_and_kernel_b(cuda_device, mode):
+    """tests/test_torch_stepdec.py's scene: steps 4..9 at interior and
+    border positions."""
+    img = np.random.default_rng(0).integers(0, 256, (360, 520), np.uint8)
+    scales = [4.5, 5.6, 6.8, 8.0, 9.2, 10.4, 11.0] * 2
+    xs = [60.3, 250.0, 510.5, 30.2, 400.8, 200.1, 8.0] * 2
+    ys = [55.7, 180.4, 300.9, 352.5, 12.3, 150.6, 355.0] * 2
+    t = lambda a: torch.as_tensor(np.float32(a), device=cuda_device)
+    cfg = cst.SurfConfig(noctaves=4, max_pts=14, **mode)
+    ii = integral_image(torch.as_tensor(img, device=cuda_device))
+    ori = t(np.random.default_rng(3).uniform(-3, 3, 14))
+    geom = desc_geometry(cfg, t(xs), t(ys), t(scales), ori)
+    v = torch.ones(14, dtype=torch.bool, device=cuda_device)
+    v[-1] = False
+    ref = single_rows(ii, cfg, *geom, v)
+    n_taken = 0
+    for sd in tpw.STEP_KERNELS:
+        before = step_rows.launches
+        rows, taken = step_rows(ii, cfg, *geom, v, elig=v, sd=sd)
+        rows_p, taken_p = step_rows_plain(ii, cfg, *geom, v, elig=v, sd=sd)
+        torch.cuda.synchronize()
+        assert step_rows.launches == before + 1
+        assert torch.equal(taken, taken_p)
+        assert torch.equal(rows[taken], ref[taken]) and not rows[~taken].any()
+        assert torch.equal(rows, step_rows(ii, cfg, *geom, v, elig=v,
+                                           sd=sd)[0])
+        tk = taken.cpu().numpy()
+        if tk.any():
+            assert row_cosines(rows.cpu().numpy()[tk],
+                               rows_p.cpu().numpy()[tk]).min() >= 0.99999
+        n_taken += int(tk.sum())
+    assert n_taken >= 9
+    # a cap below the eligible count: the first in order, the rest untaken
+    same = desc_geometry(cfg, t(xs), t(ys), torch.full_like(t(scales), 6.8),
+                         ori)
+    rows, taken = step_rows(ii, cfg, *same, v, elig=v, sd=6, cap=5)
+    assert taken.cpu().tolist() == [True] * 5 + [False] * 9
+    assert torch.equal(rows[:5], single_rows(ii, cfg, *same, v)[:5])
+    assert not rows[5:].any()
+    # the whole route returns kernel B's rows
+    tpw.DEC_STEPS = tpw.STEP_KERNELS
+    try:
+        routed = descriptor_rows(ii, cfg, *geom, v)
+    finally:
+        tpw.DEC_STEPS = ()
+    assert torch.equal(routed, ref)
+    with pytest.raises(ValueError, match="no kernel for step"):
+        step_rows(ii, cfg, *geom, v, elig=v, sd=3)
+
+
+def test_doubled_kernels_match_twins(cuda_device):
+    img = render_plane_sequence(1, 240, 320, seed=0, motion=0.02)[0][0]
+    cfg = cst.SurfConfig(noctaves=4, doubled=True, upright=False,
+                         max_pts=512, candidates_per_octave=512)
+    h, w = img.shape
+    ii = integral_image(torch.as_tensor(img, device=cuda_device), True)
+    assert tuple(ii.shape) == (2 * h, 2 * w)
+    scheds = cfg.hessian_schedule(h, w)
+    pyr_k, masks_k = tfd.fused_pyramid(ii, cfg, h, w)
+    for o, p in enumerate(response_pyramid(ii, cfg, h, w)):
+        assert torch.equal(pyr_k[o], p), o
+        assert torch.equal(masks_k[o], _candidate_mask(p, scheds[o], cfg)), o
+    k, _ = cst.detect_and_compute(torch.as_tensor(img, device=cuda_device),
+                                  cfg, compute_descriptors=False)
+    kp = (k.x, k.y, k.scale, k.valid)
+    valid = k.valid.cpu().numpy()
+    assert valid.sum() > 100
+    ori = assign_orientations(ii, cfg, *kp)
+    ws, wa = orientation_windows(ii, *kp, doubled=True)
+    check_orientations(assign_orientations_plain(ii, cfg, *kp), ori, ws, wa,
+                       valid)
+    geom = desc_geometry(cfg, k.x, k.y, k.scale, ori)
+    rows_k = descriptor_rows(ii, cfg, *geom, k.valid)
+    rows_p = describe_plain(ii, cfg, *geom, k.valid)
+    torch.cuda.synchronize()
+    assert row_cosines(rows_k.cpu().numpy()[valid],
+                       rows_p.cpu().numpy()[valid]).min() >= 0.99999
+
+
+def test_batch_on_card_matches_single_frames_on_card(cuda_device):
+    frames = render_plane_sequence(3, 240, 320, seed=0, motion=0.02)[0]
+    cfg = cst.SurfConfig(max_pts=512, candidates_per_octave=512)
+    surf = cst.Surf(cfg, device="cuda")
+    kb, db = surf.detect_and_compute_batch(frames)
+    ks, ds = cst.BatchSurf(cfg, device="cuda").detect_and_compute(frames)
+    torch.cuda.synchronize()
+    assert db.shape == (3, 512, 64) and kb.count.tolist() == ks.count.tolist()
+    for f in range(3):
+        n = int(kb.count[f])
+        assert n > 50
+        for name in ("x", "y", "scale", "strength", "laplace", "octave"):
+            assert torch.equal(getattr(kb, name)[f, :n],
+                               getattr(ks, name)[f, :n]), name
+            assert not getattr(kb, name)[f, n:].any(), name
+        assert torch.equal(db[f], ds[f])
