@@ -16,9 +16,12 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
 
   1. prints the card (nvidia-smi), CUDA, nvcc and Triton versions;
   2. builds the kernels from cuda_surf_tpu_torch/csrc with nvcc, one
-     process per source, in parallel;
+     process per source, in parallel, and prints what ptxas reports and how
+     many blocks of kernel A and of the describe kernel fit one SM;
   3. holds each kernel against its plain PyTorch twin on the card at the
-     paths' shapes (A: layers bit-exact and masks equal; B in all four
+     paths' shapes (A: layers bit-exact and masks equal, on each frame of
+     the pair and, in one launch, on the stack of the 8 frames, where
+     every frame must also equal the single-frame launch; B in all four
      modes, upright / rotated x 64 / 128-d: per-row cosine >= 0.99999 and
      invalid rows zero; B on 8 stacked frames, 32768 slots, upright and
      rotated 64-d: the same against the twin, and equal bit for bit to the
@@ -31,7 +34,9 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      top windows below that; B, D and the step kernel bit-identical across
      two launches; A, D and B again at the doubled frame's size);
   4. for each path, resets the launch counters, runs it, checks that every
-     kernel of the path launched and no other did, and holds the keypoints
+     kernel of the path launched (kernel A once per frame on the pair
+     paths, once per batch on the batch path) and no other did, and holds
+     the keypoints
      and the mean best score against the path's JAX golden fixture
      (cuda_surf_tpu_torch/data/golden_plane_*.npz; the rotated ones also
      hold the orientations, to 1e-3 rad wherever the gap is >= 1e-5 and to
@@ -59,6 +64,7 @@ device it exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -81,7 +87,7 @@ from cuda_surf_tpu_torch.ops import patch_wavelets
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
                                                 l2_normalize, sample_frame)
 from cuda_surf_tpu_torch.ops.extrema import _candidate_mask
-from cuda_surf_tpu_torch.ops.fused_detect import fused_octave, fused_pyramid
+from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
 from cuda_surf_tpu_torch.ops.hessian import response_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
 from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
@@ -271,6 +277,69 @@ def check_kernel_a(cfg, frames_dev, tag="main"):
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                 **own_time(lambda: fused_pyramid(ii, cfg, h, w),
                            bound(nbytes(ii) + 5 * n_out, A_OPS * n_out)))
+
+
+def check_kernel_a_stack(cfg, frames_dev):
+    """Kernel A on the (B, ih, iw) stack of the frames' integral images, one
+    launch: every frame's layers bit-exact to the twin and to the per-frame
+    call, masks equal to both."""
+    h, w = frames_dev[0].shape
+    scheds = cfg.hessian_schedule(h, w)
+    ii = torch.stack([integral_image(f, cfg.doubled) for f in frames_dev])
+    before = fused_pyramid.launches
+    pyr_b, masks_b = fused_pyramid(ii, cfg, h, w)
+    if fused_pyramid.launches != before + 1:
+        raise AssertionError("kernel A on a stack: not one launch")
+    for f in range(len(frames_dev)):
+        pyr_1, masks_1 = fused_pyramid(ii[f], cfg, h, w)
+        pyr_p = response_pyramid(ii[f], cfg, h, w)
+        for o in range(cfg.noctaves):
+            mask_p = _candidate_mask(pyr_p[o], scheds[o], cfg)
+            if not (torch.equal(pyr_b[o][f], pyr_p[o])
+                    and torch.equal(pyr_b[o][f], pyr_1[o])):
+                raise AssertionError(f"kernel A on a stack: frame {f} octave "
+                                     f"{o}: layers differ")
+            if not (torch.equal(masks_b[o][f], mask_p)
+                    and torch.equal(masks_b[o][f], masks_1[o])):
+                raise AssertionError(f"kernel A on a stack: frame {f} octave "
+                                     f"{o}: masks differ")
+    twin = lambda: [[_candidate_mask(p, s, cfg) for p, s in
+                     zip(response_pyramid(f, cfg, h, w), scheds)] for f in ii]
+    ms_k, ms_p = time_pair(lambda: fused_pyramid(ii, cfg, h, w), twin, SLOW)
+    n_out = sum(p.numel() for p in pyr_b)
+    emit(dict(phase="kernel_check", kernel="A_stack", frames=len(frames_dev),
+              layers_bit_exact=True, masks_equal=True,
+              equals_per_frame_call=True, launches=1))
+    return dict(frames=len(frames_dev), ms=ms_k, plain_ms=ms_p,
+                **own_time(lambda: fused_pyramid(ii, cfg, h, w),
+                           bound(nbytes(ii) + 5 * n_out, A_OPS * n_out)))
+
+
+def occupancy(cfgs, h, w):
+    """Blocks and warps of the redesigned kernels that fit one SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the built kernels):
+    kernel A at each configuration's dynamic shared memory, the describe
+    kernel in each mode."""
+    out = {}
+
+    def ask(entry, *args):
+        blocks = ctypes.c_int(0)
+        _build.launch(entry, *args, ctypes.byref(blocks))
+        return blocks.value
+
+    for name in ("main", "doubled"):
+        c = cfgs[name]
+        ih, iw = (2 * h, 2 * w) if c.doubled else (h + 1, w + 1)
+        smem = pyramid_plan(c, h, w, ih, iw, "cuda:0").smem_bytes
+        blocks = ask("surf_pyramid_occupancy", smem)
+        out[f"A_{name}"] = dict(blocks_per_sm=blocks, warps_per_sm=8 * blocks,
+                                dynamic_smem_bytes=smem)
+    for mode, kw in B_MODES.items():
+        blocks = ask("surf_describe_occupancy", int(kw["upright"]),
+                     8 if kw["extended"] else 4)
+        out[f"describe_{mode}"] = dict(blocks_per_sm=blocks,
+                                       warps_per_sm=4 * blocks)
+    return out
 
 
 def path_keypoints(frames_dev, cfg):
@@ -649,7 +718,7 @@ def load_golden(name, config):
     return golden
 
 
-KERNELS = {"A": fused_octave, "B": single_rows, "B_stacked": stacked_rows,
+KERNELS = {"A": fused_pyramid, "B": single_rows, "B_stacked": stacked_rows,
            "B_step": step_rows, "C": fused_best2, "D": assign_orientations}
 
 
@@ -711,8 +780,8 @@ def run_path(name, cfg, frames, golden, expected):
 
 def run_batch_path(cfg, frames, golden):
     """Surf.detect_and_compute_batch on the 8 frames + BatchSurf.match of
-    frame i -> i + 1, counted: kernel A once per octave and frame, kernel
-    B once for the whole batch on the stacked frames, C once per pair, and
+    frame i -> i + 1, counted: kernel A once and kernel B once for the whole
+    batch on the stacked frames, C once per pair, and
     neither the single-frame B, the step kernel nor D.  Held against the
     JAX batch fixture, and frame by frame, exactly, against the port's
     single-frame path (BatchSurf.detect_and_compute) in the same run."""
@@ -725,8 +794,7 @@ def run_batch_path(cfg, frames, golden):
     frames_of = lambda k, sl: Keypoints(*[a[sl] for a in k])
     m = bs.match(frames_of(kb, slice(0, B - 1)), db[:-1],
                  frames_of(kb, slice(1, B)), db[1:])
-    counts = read_counts("batch", {"A": cfg.noctaves * B, "B_stacked": 1,
-                                   "C": B - 1})
+    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": B - 1})
     if db.shape != (B, cfg.max_pts, cfg.nfeatures) or \
             kb.count.shape != (B,) or kb.x.shape != (B, cfg.max_pts):
         raise AssertionError("batch: outputs malformed")
@@ -770,7 +838,7 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
     try:
         kps, descs, _, counts = run_path(
             "step_routed", cfg, frames, golden,
-            {"A": None, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1})
+            {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1})
     finally:
         patch_wavelets.DEC_STEPS = ()
     for a, b in zip(descs, descs_main):
@@ -855,13 +923,13 @@ def main() -> int:
     kl = _build.kernels()
     ptxas = [ln.strip() for ln in kl.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds=kl.build_seconds, ptxas=ptxas))
-
     configs = dict(main=MAIN_CONFIG, rotated=ROTATED_CONFIG,
                    doubled=DOUBLED_CONFIG,
                    doubled_rotated=DOUBLED_ROTATED_CONFIG)
     cfgs = {k: SurfConfig(**v) for k, v in configs.items()}
+    occ = occupancy(cfgs, MAIN_PAIR["h"], MAIN_PAIR["w"])
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              nvcc_seconds=kl.build_seconds, occupancy=occ, ptxas=ptxas))
     golden = {k: load_golden(k, v) for k, v in configs.items()}
     golden["batch"] = load_golden("batch", MAIN_CONFIG)
     cfg = cfgs["main"]
@@ -871,6 +939,7 @@ def main() -> int:
     frames_dev = batch_dev[:2]
 
     res = {"A": check_kernel_a(cfg, frames_dev)}
+    res["A"]["stack"] = check_kernel_a_stack(cfg, batch_dev)
     kps_dev = path_keypoints(frames_dev, cfgs["rotated"])
     res["D"] = check_kernel_d(cfgs["rotated"], kps_dev)
     res["B"], rows128 = check_kernel_b(MAIN_CONFIG, kps_dev, list(B_MODES))
@@ -883,7 +952,7 @@ def main() -> int:
     dbl["B"], _ = check_kernel_b(DOUBLED_CONFIG, kps_dbl,
                                  ["upright64", "rotated64"], "doubled")
 
-    pair_kernels = {"A": 2 * cfg.noctaves, "B": 2, "C": 1}
+    pair_kernels = {"A": 2, "B": 2, "C": 1}    # A: one launch a frame
     counts = {}
     kps, descs, m, counts["main"] = run_path("main", cfg, frames,
                                              golden["main"], pair_kernels)
@@ -928,6 +997,11 @@ def main() -> int:
     for k, r in res.items():
         emit(dict(metric=f"kernel_{k}_ms", value=r["ms"],
                   plain_ms=r["plain_ms"], **times(r), card=card))
+    stack = res["A"]["stack"]
+    emit(dict(metric="kernel_A_stack_ms", value=stack["ms"],
+              plain_ms=stack["plain_ms"], frames=stack["frames"],
+              **times(stack), what="kernel A, one launch on the stack of "
+              f"{stack['frames']} integral images", card=card))
     for k in ("B", "B_stacked"):
         for mode, r in res[k]["modes"].items():
             emit(dict(metric=f"kernel_{k}_{mode}_ms", value=r["ms"],
@@ -985,6 +1059,12 @@ def main() -> int:
             row["modes"] = r["modes"]
         if k in ("B", "B_stacked", "B_step"):
             row["body"] = csrc + "describe_body.cuh"
+        if k in ("A", "B", "B_stacked", "B_step"):
+            # what fits an SM, asked of the built kernels
+            row["occupancy"] = {n: v for n, v in occ.items() if n.startswith(
+                "A_" if k == "A" else "describe_")}
+        if k == "A":
+            row["stack"] = r["stack"]
         if k == "B_step":
             row.update(timed_step=r["timed_step"],
                        timed_taken=r["timed_taken"])

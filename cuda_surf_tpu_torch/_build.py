@@ -35,15 +35,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # ii, iw, out, ms, oh, ow, d, rr, geom(host), norm(host), stream
-    "surf_octave_layers": [_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
-    # layers, mask, ms, oh, ow, pre_t, win(host), stream
-    "surf_octave_mask": [_P, _P, _I, _I, _I, _F, _P, _P],
+    # ii, nframes, ih, iw, plan, ntiles, smem_bytes, rr, pre_t, layers,
+    # masks, stream
+    "surf_pyramid": [_P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P, _P],
+    # smem_bytes, blocks(out)
+    "surf_pyramid_occupancy": [_I, _P],
     # ii, ih, iw, meta, fpar, wtab, K, R, upright, osz, out, stream
     "surf_describe": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # ii, nframes, ih, iw, meta, fpar, wtab, K, R, upright, osz, out, stream
     "surf_describe_stacked": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                               _P],
+    # upright, osz, blocks(out)
+    "surf_describe_occupancy": [_I, _I, _P],
     # ii, ih, iw, meta, fpar, wtab, K, sel, count, cap, sd, R, upright, osz,
     # out, stream
     "surf_describe_step": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,

@@ -16,16 +16,19 @@
 // modes.  Plain twin: cuda_surf_tpu_torch/ops/descriptor.py:_describe_chunk.
 // The per-keypoint arithmetic is in describe_body.cuh.
 //
-// What bounds it on the H100: integral-image gathers.  A keypoint samples
-// up to (2*22+1)^2 = 2025 grid points upright, (2*31+1)^2 = 3969 rotated
-// (the window grows by 1.4 to hold the turned square), each reading 12 int32
-// corners for its Haar dx/dy pair; the 4.9 MB integral image of a
-// 1280x960 frame stays in L2 (eight stacked ones, 39 MB, still do; a
-// doubled frame's is 19.7 MB), so the reads are L2 hits scattered by the
-// sampling step.  The TPU needed int8 limb planes and selection matmuls
-// because it has no fast gather; here each thread gathers its corners
-// directly.  There is no span routing: one block per keypoint whatever its
-// scale.
+// What bounds it on the H100: instructions and the L1 pipe, not bytes.  A
+// keypoint samples up to (2*22+1)^2 = 2025 grid points upright, (2*31+1)^2
+// = 3969 rotated (the window grows by 1.4 to hold the turned square), each
+// reading 12 int32 corners for its Haar dx/dy pair; the 4.9 MB integral
+// image of a 1280x960 frame stays in L2 (eight stacked ones, 39 MB, still
+// do; a doubled frame's is 19.7 MB), so the reads are L2 hits, but the
+// lanes of a warp are a sampling step apart, so one read is several cache
+// lines, and the arithmetic around a sample was several times the reads
+// (describe_body.cuh says what the body does about both).  The TPU needed
+// int8 limb planes and selection matmuls because it has no fast gather;
+// here each thread gathers its corners directly.  There is no span
+// routing: one block per keypoint slot whatever its scale, and a block of
+// an invalid slot writes its zero row and ends.
 //
 // Frames stacked (surf_describe_stacked): the TPU kernel's tiles, levels
 // and the relative bounds of tiles that straddle two frames have no
@@ -42,9 +45,9 @@
 // meta: int32 (6, K) rows [ix, iy, step, iscale, iradius, valid], and a
 // seventh row [frame] when nframes > 0 (ii then holds nframes frames);
 // fpar: f32 (5, K) rows [fracr, fracc, spacing, sine, cose], upright only
-// the first 3; wtab: f32 (40,).
+// the first 3; wtab: f32 (40,).  Block k works on slot k.
 template <bool UPRIGHT, int OSZ>
-__global__ void __launch_bounds__(desc_threads<OSZ>())
+__global__ void __launch_bounds__(desc_threads<UPRIGHT, OSZ>())
 describe_kernel(const int* __restrict__ ii, int nframes, int ih, int iw,
                 const int* __restrict__ meta, const float* __restrict__ fpar,
                 const float* __restrict__ wtab, int K, int R,
@@ -63,15 +66,15 @@ describe_kernel(const int* __restrict__ ii, int nframes, int ih, int iw,
   }
   describe_row<UPRIGHT, OSZ, 0>(
       ii + (size_t)frame * ih * iw, ih, iw, meta[k], meta[K + k],
-      meta[2 * K + k], meta[3 * K + k], min(meta[4 * K + k], R), fpar[k],
-      fpar[K + k], fpar[2 * K + k], sine, cose, wtab, out_row);
+      meta[2 * K + k], meta[3 * K + k], min(max(meta[4 * K + k], 0), R),
+      fpar[k], fpar[K + k], fpar[2 * K + k], sine, cose, wtab, out_row);
 }
 
 template <bool UPRIGHT, int OSZ>
 static int launch(const int* ii, int nframes, int ih, int iw, const int* meta,
                   const float* fpar, const float* wtab, int K, int R,
                   float* out, cudaStream_t st) {
-  describe_kernel<UPRIGHT, OSZ><<<K, desc_threads<OSZ>(), 0, st>>>(
+  describe_kernel<UPRIGHT, OSZ><<<K, desc_threads<UPRIGHT, OSZ>(), 0, st>>>(
       ii, nframes, ih, iw, meta, fpar, wtab, K, R, out);
   return (int)cudaGetLastError();
 }
@@ -81,6 +84,7 @@ static int dispatch(const int* ii, int nframes, int ih, int iw,
                     int K, int R, int upright, int osz, float* out,
                     void* stream) {
   if (K <= 0) return 0;
+  if (R < 0 || R > DESC_MAX_RADIUS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (osz == 4)
     return upright
@@ -112,4 +116,18 @@ extern "C" int surf_describe_stacked(const int* ii, int nframes, int ih,
   if (nframes <= 0) return (int)cudaErrorInvalidValue;
   return dispatch(ii, nframes, ih, iw, meta, fpar, wtab, K, R, upright, osz,
                   out, stream);
+}
+
+// Blocks of the kernel's instantiation that fit one SM, from the registers
+// and shared memory it was compiled to.
+template <bool UPRIGHT, int OSZ>
+static int occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, describe_kernel<UPRIGHT, OSZ>, desc_threads<UPRIGHT, OSZ>(), 0);
+}
+
+extern "C" int surf_describe_occupancy(int upright, int osz, int* blocks) {
+  if (osz == 4) return upright ? occupancy<true, 4>(blocks) : occupancy<false, 4>(blocks);
+  if (osz == 8) return upright ? occupancy<true, 8>(blocks) : occupancy<false, 8>(blocks);
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,17 +11,19 @@
 // directly.  What carries over is _run_step_dec's contract: of the
 // keypoints with step == SD the first `cap` in index order are taken,
 // rows are computed for those alone, and the rest is left to kernel B.  On
-// Hopper a compile-time step gives strength-reduced index arithmetic
-// (i * SD, (float)SD) and a compacted grid: block j works on keypoint
-// sel[j], so no block past `count` does any sampling.
+// Hopper a compile-time step gives constant index arithmetic (i * SD,
+// (float)SD; little, since the upright body keeps it in its 2n-entry
+// tables) and a compacted grid: block j works on keypoint sel[j], so no
+// block past `count` does any sampling.
 //
 // The per-keypoint arithmetic is describe_body.cuh's, shared with kernel B
 // (describe.cu), in the same order with the same thread count, so a taken
 // keypoint's row equals kernel B's row for it bit for bit.
 // Plain twin: cuda_surf_tpu_torch/ops/patch_wavelets.py:step_rows_plain.
 //
-// What bounds it on the H100: as kernel B, the scattered L2 reads of the
-// integral image's corners, 12 per sample.
+// What bounds it on the H100: as kernel B, the instructions and L1 cache
+// lines of a sample's 12 corner reads; with a few hundred keypoints per
+// launch, mostly the launch itself.
 
 #include "describe_body.cuh"
 
@@ -31,7 +33,7 @@
 // zero rows from `count` on (row `cap` is always zero: the wrapper
 // gathers it for the keypoints that were not taken).
 template <bool UPRIGHT, int OSZ, int SD>
-__global__ void __launch_bounds__(desc_threads<OSZ>())
+__global__ void __launch_bounds__(desc_threads<UPRIGHT, OSZ>())
 describe_step_kernel(const int* __restrict__ ii, int ih, int iw,
                      const int* __restrict__ meta,
                      const float* __restrict__ fpar,
@@ -53,8 +55,8 @@ describe_step_kernel(const int* __restrict__ ii, int ih, int iw,
   }
   describe_row<UPRIGHT, OSZ, SD>(
       ii, ih, iw, meta[k], meta[K + k], SD, meta[3 * K + k],
-      min(meta[4 * K + k], R), fpar[k], fpar[K + k], fpar[2 * K + k], sine,
-      cose, wtab, out_row);
+      min(max(meta[4 * K + k], 0), R), fpar[k], fpar[K + k], fpar[2 * K + k],
+      sine, cose, wtab, out_row);
 }
 
 template <bool UPRIGHT, int OSZ, int SD>
@@ -62,8 +64,9 @@ static int launch(const int* ii, int ih, int iw, const int* meta,
                   const float* fpar, const float* wtab, int K, const int* sel,
                   const int* count, int cap, int R, float* out,
                   cudaStream_t st) {
-  describe_step_kernel<UPRIGHT, OSZ, SD><<<cap + 1, desc_threads<OSZ>(), 0, st>>>(
-      ii, ih, iw, meta, fpar, wtab, K, sel, count, cap, R, out);
+  describe_step_kernel<UPRIGHT, OSZ, SD>
+      <<<cap + 1, desc_threads<UPRIGHT, OSZ>(), 0, st>>>(
+          ii, ih, iw, meta, fpar, wtab, K, sel, count, cap, R, out);
   return (int)cudaGetLastError();
 }
 
@@ -91,7 +94,8 @@ extern "C" int surf_describe_step(const int* ii, int ih, int iw,
                                   const int* count, int cap, int sd, int R,
                                   int upright, int osz, float* out,
                                   void* stream) {
-  if (K <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || cap <= 0 || R < 0 || R > DESC_MAX_RADIUS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define SURF_STEP_CASE(SD)                                                   \
   case SD:                                                                   \

@@ -2,7 +2,7 @@
 per call, or a batch of frames per call for throughput.
 
 Mirror of Surfor::detectAndCompute (surf.cpp:205-355): integral image ->
-kernel A (response layers + NMS mask per octave) -> compaction and
+kernel A (response layers + NMS masks of all octaves) -> compaction and
 subpixel walk -> makePoint -> kernel D (orientation, unless upright) ->
 kernel B (descriptor rows) -> L2 normalise.  Matching runs kernel C.
 PyTorch runs eagerly, so there is nothing to compile; the kernels are
@@ -111,14 +111,6 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
     return kps, desc
 
 
-def _batch_pyramids(ii, cfg: SurfConfig, h: int, w: int):
-    """Kernel A on each frame of the (B, ih, iw) stack -> per octave the
-    (B, ms, oh, ow) response layers and NMS masks."""
-    per_frame = [fused_pyramid(f, cfg, h, w) for f in ii]
-    return ([torch.stack([fr[part][o] for fr in per_frame])
-             for o in range(cfg.noctaves)] for part in (0, 1))
-
-
 def _spread_frames(valid_u, fid, fields, B: int, max_pts: int):
     """The union's keypoints -> the (B, max_pts) layout.  The union is
     frame-major and stable, so frame b's keypoints are a contiguous run of
@@ -145,7 +137,7 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
     (B,) count, (B, max_pts, nfeatures) descriptors), on the images'
     device: the throughput form of the pipeline.
 
-    Kernel A runs per frame (its cost goes with the frame's area).  The
+    Kernel A runs once on the (B, ih, iw) stack of integral images.  The
     compaction, the subpixel walk and makePoint run ONCE over the union of
     the B frames' candidates; the union is frame-major and stable, so each
     frame's keypoints are a contiguous run, which one gather spreads to the
@@ -165,7 +157,7 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
 
     dev = images.device
     ii = torch.stack([integral_image(im, cfg.doubled) for im in images])
-    pyr_b, mask_b = _batch_pyramids(ii, cfg, h, w)
+    pyr_b, mask_b = fused_pyramid(ii, cfg, h, w)
     cand = detect(pyr_b, cfg.hessian_schedule(h, w), cfg, cand_masks=mask_b,
                   nframes=B)
     _, valid_u, *fields, fid = _make_keypoints(ii, cand, cfg)

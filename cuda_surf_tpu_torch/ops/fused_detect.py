@@ -1,11 +1,12 @@
-"""Kernel A's wrapper: per-octave response layers + NMS candidate mask
-(port of cuda_surf_tpu/ops/fused_detect.py).
+"""Kernel A's wrapper: every octave's response layers + NMS candidate
+masks, for one frame or a stack of frames (port of
+cuda_surf_tpu/ops/fused_detect.py).
 
-On a CUDA tensor `fused_octave` launches kernel A (csrc/detect.cu); on
-a CPU tensor `fused_pyramid` takes the plain twins,
-`hessian.response_pyramid` and `extrema._candidate_mask`.  Any other
-device raises.  The kernel reads its box-sum corners straight from the
-int32 integral image, so no phase planes are built.
+On a CUDA tensor `fused_pyramid` launches kernel A (csrc/detect.cu) once,
+whatever the number of octaves and frames; on a CPU tensor it takes the
+plain twins, `hessian.response_pyramid` and `extrema._candidate_mask`.
+Any other device raises.  The kernel reads its box-sum corners straight
+from the int32 integral image, so no phase planes are built.
 
 Layer geometry (`octave_plan`): layer `li` of octave `o` holds, at grid
 position (R, C) inside its embed rectangle, the determinant read from
@@ -15,9 +16,16 @@ the previous octave's scale geometry and the rectangle is the part of
 the previous octave's nonzero region that 2x decimation keeps: the
 decimated value at R is the previous layer's value at 2R, which read
 (d/2)*2R + dy, the same integral-image entry.
+
+`pyramid_plan` packs the geometry of all octaves and the table of output
+tiles into one int32 tensor, once per configuration, frame size and
+device; csrc/detect.cu documents the layout.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -88,45 +96,137 @@ def octave_plan(cfg: SurfConfig, scheds, shapes, o: int, ih: int, iw: int):
     return dict(d=d, oh=oh, ow=ow, ms=ms, geom=geom, norm=norm, win=win)
 
 
-def fused_octave(ii: torch.Tensor, plan: dict, cfg: SurfConfig):
-    """Kernel A on one octave: int32 integral image (CUDA) ->
-    (layers (ms, oh, ow) f32, mask (ms, oh, ow) bool)."""
-    _build.require_cuda(ii, "ii", torch.int32)
-    ms, oh, ow = plan["ms"], plan["oh"], plan["ow"]
-    layers = torch.empty((ms, oh, ow), dtype=torch.float32, device=ii.device)
-    mask = torch.empty((ms, oh, ow), dtype=torch.bool, device=ii.device)
-    pre_t = float(np.float32(0.8) * np.float32(cfg.thresh))
-    with torch.cuda.device(ii.device):
-        st = _build.stream(ii.device)
-        _build.launch(
-            "surf_octave_layers", _build.ptr(ii), ii.shape[1],
-            _build.ptr(layers), ms, oh, ow, plan["d"], RR,
-            plan["geom"].ctypes.data, plan["norm"].ctypes.data, st)
-        _build.launch(
-            "surf_octave_mask", _build.ptr(layers), _build.ptr(mask), ms, oh,
-            ow, pre_t, plan["win"].ctypes.data, st)
-    fused_octave.launches += 1
-    return layers, mask
+# The kernel's constants (csrc/detect.cu).
+TILE_H, TILE_W = 14, 30
+MAX_LAYERS = 8
+PLAN_HEADER, OCT_HEADER, LAYER_INTS, LAYER_CORNERS = 8, 16, 48, 16
+OCT_INTS = OCT_HEADER + MAX_LAYERS * LAYER_INTS
+# An octave stages its tile's integral-image patch in shared memory when
+# the patch takes at most this many bytes (octave 0 not doubled: 24 KB).
+# Every other patch is 60 KB and more, three blocks an SM at best: staging
+# the doubled frame's octave 0 that way measured slower than gathering.
+STAGE_MAX_BYTES = 32 * 1024
 
 
-fused_octave.launches = 0
+@dataclasses.dataclass(frozen=True, eq=False)
+class PyramidPlan:
+    octaves: tuple          # `octave_plan` of every octave
+    staged: tuple           # per octave: the patch goes to shared memory
+    tiles: np.ndarray       # (ntiles, 3) int32: octave, first row, first col
+    offsets: tuple          # per octave: first element in the outputs, per frame
+    total: int              # elements of all octaves, per frame
+    smem_bytes: int         # the kernel's dynamic shared memory
+    table: np.ndarray       # the packed int32 plan
+    dev: torch.Tensor       # `table` on the device
+
+
+def _tile_table(shapes):
+    """Every (octave, first row, first column) of the TILE_H x TILE_W output
+    tiles, the highest octave first: its blocks are the slowest (they
+    gather corners a sector apart), so they start first and octave 0's
+    many quick ones fill the tail."""
+    return np.array([(o, r, c) for o, (oh, ow) in list(enumerate(shapes))[::-1]
+                     for r in range(0, oh, TILE_H)
+                     for c in range(0, ow, TILE_W)], np.int32).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=32)
+def pyramid_plan(cfg: SurfConfig, h: int, w: int, ih: int, iw: int,
+                 device: str = "cpu") -> PyramidPlan:
+    """Kernel A's static plan for (h, w) frames whose integral images are
+    (ih, iw): per-octave geometry (`octave_plan`, which raises if a layer
+    would read outside the integral image), each layer's 32 corner offsets
+    from an output's base address, and the tile table, packed and copied
+    to `device` once."""
+    scheds = cfg.hessian_schedule(h, w)
+    shapes = cfg.octave_shapes(h, w)
+    ms = cfg.max_scale
+    if ms > MAX_LAYERS:
+        raise ValueError(f"kernel A holds {MAX_LAYERS} layers an octave, "
+                         f"the config has {ms}")
+    octaves = tuple(octave_plan(cfg, scheds, shapes, o, ih, iw)
+                    for o in range(cfg.noctaves))
+    tiles = _tile_table(shapes)
+    table = np.zeros(PLAN_HEADER + cfg.noctaves * OCT_INTS + tiles.size,
+                     np.int32)
+    table[:3] = (cfg.noctaves, ms, len(tiles))
+    offsets, staged, total, patch_words = [], [], 0, 0
+    for o, plan in enumerate(octaves):
+        d, oh, ow = plan["d"], plan["oh"], plan["ow"]
+        sps = ([scheds[o - 1].scales[li - scheds[o - 1].init_scale]
+                for li in (ms - 3, ms - 1)] if o > 0 else []) \
+            + list(scheds[o].scales)
+        corners = [_corner_offsets(sp) for sp in sps]
+        dys = [dy for offs in corners for dy, _ in offs]
+        dxs = [dx for offs in corners for _, dx in offs]
+        dy0, dx0 = min(dys), min(dxs)
+        # the patch of a tile and its halo: rows and columns, then the
+        # columns split into d planes of pwd words
+        ph = d * (TILE_H + 1) + max(dys) - dy0 + 1
+        pcols = d * (TILE_W + 1) + max(dxs) - dx0 + 1
+        pwd = -(-pcols // d)
+        stage = 4 * ph * d * pwd <= STAGE_MAX_BYTES
+        if stage:
+            patch_words = max(patch_words, ph * d * pwd)
+        g = table[PLAN_HEADER + o * OCT_INTS:][:OCT_INTS]
+        g[:10] = (oh, ow, d, stage, dy0, dx0, ph, pcols, pwd, total)
+        for li, offs in enumerate(corners):
+            L = g[OCT_HEADER + li * LAYER_INTS:][:LAYER_INTS]
+            L[:4] = plan["geom"][li, :4]
+            L[4] = plan["norm"][li:li + 1].view(np.int32)[0]
+            L[5:9] = plan["win"][li]
+            L[LAYER_CORNERS:LAYER_CORNERS + 32] = [
+                (dy - dy0) * d * pwd + ((dx - dx0) % d) * pwd + (dx - dx0) // d
+                if stage else dy * iw + dx for dy, dx in offs]
+        offsets.append(total)
+        staged.append(bool(stage))
+        total += ms * oh * ow
+    table[PLAN_HEADER + cfg.noctaves * OCT_INTS:] = tiles.reshape(-1)
+    smem = 4 * (ms * (TILE_H + 2) * (TILE_W + 2) + patch_words)
+    return PyramidPlan(octaves, tuple(staged), tiles, tuple(offsets), total,
+                       smem, table, torch.as_tensor(table).to(device))
 
 
 def fused_pyramid(ii: torch.Tensor, cfg: SurfConfig, h: int, w: int):
-    """-> (pyr, masks): per-octave response layers and NMS candidate masks.
-    CUDA: kernel A, one call per octave.  CPU: the plain twins."""
-    scheds = cfg.hessian_schedule(h, w)
+    """-> (pyr, masks): per-octave response layers (ms, oh, ow) float32 and
+    NMS candidate masks (ms, oh, ow) bool of the (ih, iw) integral image
+    `ii`; with a (B, ih, iw) stack of frames, (B, ms, oh, ow) each.
+    CUDA: kernel A, one launch.  CPU: the plain twins, frame by frame."""
+    if ii.ndim not in (2, 3):
+        raise ValueError(f"fused_pyramid: ii must be (ih, iw) or (B, ih, iw), "
+                         f"got {tuple(ii.shape)}")
     if ii.device.type == "cpu":
-        pyr = response_pyramid(ii, cfg, h, w)
-        return pyr, [_candidate_mask(p, s, cfg) for p, s in zip(pyr, scheds)]
+        scheds = cfg.hessian_schedule(h, w)
+        frames = []
+        for frame in (ii if ii.ndim == 3 else ii[None]):
+            pyr = response_pyramid(frame, cfg, h, w)
+            frames.append((pyr, [_candidate_mask(p, s, cfg)
+                                 for p, s in zip(pyr, scheds)]))
+        if ii.ndim == 2:
+            return frames[0]
+        return tuple([torch.stack([fr[part][o] for fr in frames])
+                      for o in range(cfg.noctaves)] for part in (0, 1))
     if ii.device.type != "cuda":
         raise ValueError(f"fused_pyramid: unsupported device {ii.device}")
-    shapes = cfg.octave_shapes(h, w)
-    ih, iw = ii.shape
-    pyr, masks = [], []
-    for o in range(cfg.noctaves):
-        layers, mask = fused_octave(
-            ii, octave_plan(cfg, scheds, shapes, o, ih, iw), cfg)
-        pyr.append(layers)
-        masks.append(mask)
-    return pyr, masks
+    _build.require_cuda(ii, "ii", torch.int32)
+    ih, iw = ii.shape[-2:]
+    B = ii.shape[0] if ii.ndim == 3 else 1
+    plan = pyramid_plan(cfg, h, w, ih, iw, str(ii.device))
+    layers = torch.empty(B * plan.total, dtype=torch.float32, device=ii.device)
+    masks = torch.empty(B * plan.total, dtype=torch.bool, device=ii.device)
+    pre_t = float(np.float32(0.8) * np.float32(cfg.thresh))
+    with torch.cuda.device(ii.device):
+        _build.launch(
+            "surf_pyramid", _build.ptr(ii), B, ih, iw, _build.ptr(plan.dev),
+            len(plan.tiles), plan.smem_bytes, RR, pre_t, _build.ptr(layers),
+            _build.ptr(masks), _build.stream(ii.device))
+    fused_pyramid.launches += 1
+    lead = (B,) if ii.ndim == 3 else ()
+    views = lambda flat: [
+        flat[B * off:B * (off + cfg.max_scale * p["oh"] * p["ow"])].view(
+            *lead, cfg.max_scale, p["oh"], p["ow"])
+        for off, p in zip(plan.offsets, plan.octaves)]
+    return views(layers), views(masks)
+
+
+fused_pyramid.launches = 0

@@ -21,13 +21,25 @@ JSON object per stage, then a markdown table of both paths.
 
 Then the batch path, `frontend.detect_and_compute_batch` on the
 BATCH_FRAMES frames of cuda_surf_tpu_torch.io.main_batch at the main
-config, split the same way (integral images, kernel A on every frame,
+config, split the same way (integral images, kernel A on the stack,
 the stacked detection, makePoint + the spread to (B, max_pts), descriptor
 geometry, kernel B on the stacked frames, normalisation, the whole batch),
 with ms and device µs also per frame, and, with --doubled, the two
 doubled pair paths like the first table.
 
+With --kernels it times kernel A and the describe kernels alone instead,
+at the main path's shapes: A on one frame, on the stack of BATCH_FRAMES
+frames and on the doubled frame (a 2560x1920 integral image); kernel B on
+frame 0's keypoints, upright / rotated x 64 / 128-d; B_stacked on every
+frame's slots in one launch, 64-d; B_step, the static-step kernel at step
+4.  One JSON object per kernel: `kernel_us`, the device time of the
+library call alone (CUDA events around it, `_build.record_launches`,
+median of 20 calls after 3), `ms` as above, `device_ops` and `device_us`
+from the profiler, and `sha`, a hash of the output's bytes, so that two
+builds of the kernels can be held against each other bit for bit.
+
     python3 probe_stages.py [--runs 30] [--doubled]
+    python3 probe_stages.py --kernels [--only A] [--tag NAME]
 
 With no CUDA device it exits with code 2 before printing any result.
 """
@@ -35,6 +47,7 @@ With no CUDA device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -42,12 +55,12 @@ import sys
 
 import torch
 
-from cuda_surf_tpu_torch import SurfConfig
+from cuda_surf_tpu_torch import SurfConfig, _build
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
                                         ROTATED_CONFIG)
-from cuda_surf_tpu_torch.frontend import (_batch_pyramids, _make_keypoints,
-                                          _spread_frames, detect_and_compute,
+from cuda_surf_tpu_torch.frontend import (_make_keypoints, _spread_frames,
+                                          detect_and_compute,
                                           detect_and_compute_batch)
 from cuda_surf_tpu_torch.io import main_batch
 from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, l2_normalize
@@ -55,7 +68,7 @@ from cuda_surf_tpu_torch.ops.extrema import detect
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
 from cuda_surf_tpu_torch.ops.orientation import assign_orientations
-from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows
+from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows, step_rows
 
 
 ORDER = ("integral image", "kernel A, all octaves", "detect: compaction + walk",
@@ -131,7 +144,7 @@ def batch_stages(cfg: SurfConfig, imgs: torch.Tensor):
     integrals = lambda: torch.stack([integral_image(im, cfg.doubled)
                                      for im in imgs])
     ii = integrals()
-    pyr, masks = _batch_pyramids(ii, cfg, h, w)
+    pyr, masks = fused_pyramid(ii, cfg, h, w)
     cand = detect(pyr, sched, cfg, cand_masks=masks, nframes=B)
     points = lambda: _make_keypoints(ii, cand, cfg)
     _, valid_u, *fields, fid = points()
@@ -149,8 +162,8 @@ def batch_stages(cfg: SurfConfig, imgs: torch.Tensor):
         return _spread_frames(v, i, f, B, cfg.max_pts)
 
     return [("integral images", integrals),
-            ("kernel A, all octaves and frames + stack",
-             lambda: _batch_pyramids(ii, cfg, h, w)),
+            ("kernel A, all octaves and frames",
+             lambda: fused_pyramid(ii, cfg, h, w)),
             ("detect: compaction + walk on the union",
              lambda: detect(pyr, sched, cfg, cand_masks=masks, nframes=B)),
             ("makePoint + Laplacian + spread", spread),
@@ -198,9 +211,91 @@ def pair_table(paths, img, runs, card):
     print(flush=True)
 
 
+KERNEL_MODES = {"upright64": dict(upright=True, extended=False),
+                "rotated64": dict(upright=False, extended=False),
+                "upright128": dict(upright=True, extended=True),
+                "rotated128": dict(upright=False, extended=True)}
+
+
+def own_us(fn) -> float:
+    """Device us of the library calls of `fn` alone, median of 20 after 3."""
+    us = []
+    for i in range(23):
+        with _build.record_launches() as rec:
+            fn()
+        torch.cuda.synchronize()
+        if i >= 3:
+            us.append(sum(a.elapsed_time(b) for _, a, b in rec) * 1e3)
+    return statistics.median(us)
+
+
+def flatten(out):
+    """Tensors of a wrapper's result, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in flatten(part)]
+
+
+def kernel_table(imgs, runs, card, only, tag):
+    """Kernel A and the describe kernels alone, one JSON object each."""
+
+    def report(name, fn):
+        if not name.startswith(only):
+            return
+        h = hashlib.sha256()
+        for t in flatten(fn()):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        ops, us = device_ops(fn)
+        print(json.dumps(dict(tag=tag, kernel=name, kernel_us=own_us(fn),
+                              ms=event_ms(fn, runs), device_ops=ops,
+                              device_us=us, sha=h.hexdigest()[:16],
+                              card=card)), flush=True)
+
+    cfg = SurfConfig(**MAIN_CONFIG)
+    B, h, w = imgs.shape
+    ii = torch.stack([integral_image(im) for im in imgs])
+    report("A", lambda: fused_pyramid(ii[0], cfg, h, w))
+    report("A_stack", lambda: fused_pyramid(ii, cfg, h, w))
+    dcfg = SurfConfig(**DOUBLED_CONFIG)
+    iid = integral_image(imgs[0], True)
+    report("A_doubled", lambda: fused_pyramid(iid, dcfg, h, w))
+    if not any(n.startswith(only) for n in ("B_", "B_stacked_", "B_step")):
+        return
+
+    kb, _ = detect_and_compute_batch(imgs, cfg, compute_descriptors=False)
+    rcfg = SurfConfig(**ROTATED_CONFIG)
+    ori = torch.stack([assign_orientations(ii[f], rcfg, kb.x[f], kb.y[f],
+                                           kb.scale[f], kb.valid[f])
+                       for f in range(B)])
+    flat = lambda a: a.reshape(-1)
+    frame = torch.arange(B, dtype=torch.int32,
+                         device=ii.device).repeat_interleave(kb.x.shape[1])
+    for mode, kw in KERNEL_MODES.items():
+        c = SurfConfig(**dict(MAIN_CONFIG, **kw))
+        g0 = desc_geometry(c, kb.x[0], kb.y[0], kb.scale[0], ori[0])
+        report(f"B_{mode}",
+               lambda: descriptor_rows(ii[0], c, *g0, kb.valid[0]))
+        if not c.extended:
+            g = desc_geometry(c, flat(kb.x), flat(kb.y), flat(kb.scale),
+                              flat(ori))
+            report(f"B_stacked_{mode}",
+                   lambda: descriptor_rows(ii, c, *g, flat(kb.valid),
+                                           frame=frame))
+    g0 = desc_geometry(cfg, kb.x[0], kb.y[0], kb.scale[0], ori[0])
+    v = kb.valid[0]
+    report("B_step", lambda: step_rows(ii[0], cfg, *g0, v, elig=v, sd=4)[0])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=30)
+    ap.add_argument("--kernels", action="store_true",
+                    help="time kernel A and the describe kernels alone instead")
+    ap.add_argument("--only", default="",
+                    help="with --kernels: only the kernels whose name starts "
+                         "with this")
+    ap.add_argument("--tag", default="", help="with --kernels: copied to "
+                    "every line")
     ap.add_argument("--doubled", action="store_true",
                     help="also the two doubled pair paths")
     args = ap.parse_args()
@@ -211,6 +306,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     imgs = torch.as_tensor(main_batch(BATCH_FRAMES)).cuda()
+    if args.kernels:
+        kernel_table(imgs, args.runs, card, args.only, args.tag)
+        return 0
     pair_table((("upright", MAIN_CONFIG), ("rotated", ROTATED_CONFIG)),
                imgs[0], args.runs, card)
     if args.doubled:

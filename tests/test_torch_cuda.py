@@ -7,7 +7,8 @@ on its own, without tests/conftest.py, which imports jax:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: kernel A bit-exact (its determinant avoids FMA
-contraction); kernel B, in each of its four modes (upright / rotated x
+contraction), one launch for all octaves, on one frame or on a stack of
+frames, whose frames equal the single-frame launch's; kernel B, in each of its four modes (upright / rotated x
 64 / 128-d), row cosine >= 0.99999 and bit-identical across launches
 (fixed-order reduction); kernel C, at D = 64 and 128, scores within
 1e-5, indices equal wherever best - second >= 1e-5, exact ties to the
@@ -56,10 +57,10 @@ def test_kernel_a_matches_twin(cuda_device, source):
     h, w = img.shape
     ii = integral_image(torch.as_tensor(img, device=cuda_device))
     scheds = cfg.hessian_schedule(h, w)
-    before = tfd.fused_octave.launches
+    before = tfd.fused_pyramid.launches
     pyr_k, masks_k = tfd.fused_pyramid(ii, cfg, h, w)
     torch.cuda.synchronize()
-    assert tfd.fused_octave.launches == before + cfg.noctaves
+    assert tfd.fused_pyramid.launches == before + 1   # every octave at once
     n_cand = 0
     for o, p in enumerate(response_pyramid(ii, cfg, h, w)):
         assert torch.equal(pyr_k[o], p), o
@@ -404,3 +405,68 @@ def test_batch_on_card_matches_single_frames_on_card(cuda_device):
                                getattr(ks, name)[f, :n]), name
             assert not getattr(kb, name)[f, n:].any(), name
         assert torch.equal(db[f], ds[f])
+
+
+def test_kernel_a_on_a_stack_equals_per_frame(cuda_device):
+    """One launch on a (B, ih, iw) stack: every frame's layers and masks
+    equal the single-frame launch's and the twins', bit for bit."""
+    frames = render_plane_sequence(3, 240, 320, seed=0, motion=0.02)[0]
+    cfg = cst.SurfConfig(noctaves=4)
+    h, w = frames[0].shape
+    ii = torch.stack([integral_image(torch.as_tensor(f, device=cuda_device))
+                      for f in frames])
+    scheds = cfg.hessian_schedule(h, w)
+    before = tfd.fused_pyramid.launches
+    pyr_b, masks_b = tfd.fused_pyramid(ii, cfg, h, w)
+    torch.cuda.synchronize()
+    assert tfd.fused_pyramid.launches == before + 1
+    for f in range(3):
+        pyr_1, masks_1 = tfd.fused_pyramid(ii[f], cfg, h, w)
+        for o, p in enumerate(response_pyramid(ii[f], cfg, h, w)):
+            assert pyr_b[o].shape == (3, *p.shape)
+            assert torch.equal(pyr_b[o][f], p), (f, o)
+            assert torch.equal(pyr_b[o][f], pyr_1[o]), (f, o)
+            assert torch.equal(masks_b[o][f],
+                               _candidate_mask(p, scheds[o], cfg)), (f, o)
+            assert torch.equal(masks_b[o][f], masks_1[o]), (f, o)
+        assert sum(int(m[f].sum()) for m in masks_b) > 10
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(upright=False),
+                                  dict(extended=True),
+                                  dict(upright=False, extended=True)],
+                         ids=["upright64", "rotated64", "upright128",
+                              "rotated128"])
+def test_describe_kernels_agree_bit_for_bit(cuda_device, mode):
+    """Kernel B, kernel B on a stack and the static-step kernel are one
+    body: the same keypoint gets the same row from each, and a second
+    launch of each repeats the first."""
+    img = np.random.default_rng(0).integers(0, 256, (360, 520), np.uint8)
+    scales = [4.5, 5.6, 6.8, 8.0, 9.2, 10.4, 11.0, 2.1, 3.3, 14.0] * 2
+    xs = [60.3, 250.0, 510.5, 30.2, 400.8, 200.1, 8.0, 100.9, 333.3, 260.0] * 2
+    ys = [55.7, 180.4, 300.9, 352.5, 12.3, 150.6, 355.0, 99.1, 250.2, 180.0] * 2
+    K = len(xs)
+    t = lambda a: torch.as_tensor(np.float32(a), device=cuda_device)
+    cfg = cst.SurfConfig(noctaves=4, max_pts=K, **mode)
+    ii = integral_image(torch.as_tensor(img, device=cuda_device))
+    ori = t(np.random.default_rng(3).uniform(-3, 3, K))
+    geom = desc_geometry(cfg, t(xs), t(ys), t(scales), ori)
+    v = torch.ones(K, dtype=torch.bool, device=cuda_device)
+    v[-1] = False
+    ref = single_rows(ii, cfg, *geom, v)
+    assert torch.equal(ref, single_rows(ii, cfg, *geom, v))
+    assert int((ref.abs().sum(1) > 0).sum()) >= K - 3 and not ref[-1].any()
+    # the same frame twice in a stack, the keypoints in the second copy
+    stack = torch.stack([ii, ii])
+    frame = torch.ones(K, dtype=torch.int32, device=cuda_device)
+    rows_s = stacked_rows(stack, cfg, *geom, v, frame=frame)
+    assert torch.equal(rows_s, ref)
+    assert torch.equal(rows_s, stacked_rows(stack, cfg, *geom, v, frame=frame))
+    n_taken = 0
+    for sd in tpw.STEP_KERNELS:
+        rows, taken = step_rows(ii, cfg, *geom, v, elig=v, sd=sd)
+        assert torch.equal(rows[taken], ref[taken]), sd
+        assert torch.equal(rows, step_rows(ii, cfg, *geom, v, elig=v,
+                                           sd=sd)[0]), sd
+        n_taken += int(taken.sum())
+    assert n_taken >= 10

@@ -144,3 +144,85 @@ def match_sets():
     valid1 = np.ones(n1, bool)
     valid1[[5, 50]] = False
     return d1, d2, valid1, valid2
+
+
+def emulate_kernel_a(ii, plan, thresh):
+    """Kernel A (csrc/detect.cu) in plain torch, tile by tile, driven by the
+    packed plan alone as the kernel is: per tile of the plan's table the
+    `ms` layers on the tile plus a one-cell halo (-inf outside the octave,
+    zero outside a layer's rectangle, else the determinant from the 32
+    corner offsets; a staged octave reads them from the tile's patch in
+    its column-plane layout), the tile's layers written once, and the
+    3x3x3 test taken from the halo block inside the NMS windows.
+    `ii`: (ih, iw) int32 on the CPU; `plan`: fused_detect.PyramidPlan.
+    -> (layers, masks, writes): per-octave tensors and how often each
+    output element was written."""
+    from cuda_surf_tpu_torch.ops import fused_detect as fd
+    from cuda_surf_tpu_torch.ops.hessian import RR
+    tab = plan.table
+    noct, ms, ntiles = (int(v) for v in tab[:3])
+    ih, iw = ii.shape
+    flat = ii.reshape(-1)
+    HH, HW = fd.TILE_H + 2, fd.TILE_W + 2
+    pre_t = float(np.float32(0.8) * np.float32(thresh))
+    layers = [torch.full((ms, p["oh"], p["ow"]), float("nan"))
+              for p in plan.octaves]
+    masks = [torch.zeros((ms, p["oh"], p["ow"]), dtype=torch.bool)
+             for p in plan.octaves]
+    writes = [torch.zeros((ms, p["oh"], p["ow"]), dtype=torch.int32)
+              for p in plan.octaves]
+    tiles = tab[fd.PLAN_HEADER + noct * fd.OCT_INTS:].reshape(ntiles, 3)
+    hr, hc = torch.meshgrid(torch.arange(HH), torch.arange(HW), indexing="ij")
+    for o, row0, col0 in tiles.tolist():
+        g = tab[fd.PLAN_HEADER + o * fd.OCT_INTS:][:fd.OCT_INTS]
+        oh, ow, d, staged, dy0, dx0, ph, pcols, pwd = (int(v) for v in g[:9])
+        r, c = row0 - 1 + hr, col0 - 1 + hc
+        inside = (r >= 0) & (r < oh) & (c >= 0) & (c < ow)
+        if staged:
+            y = d * (row0 - 1) + dy0 + torch.arange(ph)[:, None]
+            x = d * (col0 - 1) + dx0 + torch.arange(pcols)[None, :]
+            ok = (y >= 0) & (y < ih) & (x >= 0) & (x < iw)
+            vals = torch.where(ok, ii[y.clamp(0, ih - 1), x.clamp(0, iw - 1)],
+                               0)
+            src = torch.zeros(ph * d * pwd, dtype=torch.int32)
+            px = torch.arange(pcols)
+            src[(torch.arange(ph)[:, None] * d * pwd
+                 + ((px % d) * pwd + px // d)[None, :]).reshape(-1)] = \
+                vals.reshape(-1)
+            base = d * hr * d * pwd + hc
+        else:
+            src = flat
+            base = d * r * iw + d * c
+        lay = torch.full((ms, HH, HW), -float("inf"))
+        for li in range(ms):
+            L = g[fd.OCT_HEADER + li * fd.LAYER_INTS:][:fd.LAYER_INTS]
+            r0, r1, c0, c1 = (int(v) for v in L[:4])
+            norm = float(L[4:5].view(np.float32)[0])
+            rect = inside & (r >= r0) & (r < r1) & (c >= c0) & (c < c1)
+            q = torch.as_tensor(L[fd.LAYER_CORNERS:fd.LAYER_CORNERS + 32])
+            at = torch.where(rect, base, 0)[..., None] + q      # (HH, HW, 32)
+            at = torch.where(rect[..., None], at, 0)
+            v = src[at.long()]
+            box = (v[..., 0::4] + v[..., 1::4]) - v[..., 2::4] - v[..., 3::4]
+            dxx = (box[..., 0] - 3 * box[..., 1]).float()
+            dyy = (box[..., 2] - 3 * box[..., 3]).float()
+            dxy = 0.6 * (((box[..., 4] + box[..., 5]) - box[..., 6])
+                         - box[..., 7]).float()
+            det = RR * (dxx * dyy - dxy * dxy) * norm
+            lay[li] = torch.where(rect, det, torch.where(inside, 0.0,
+                                                         -float("inf")))
+        core = inside[1:-1, 1:-1]
+        rr_, cc_ = r[1:-1, 1:-1][core], c[1:-1, 1:-1][core]
+        nb = torch.nn.functional.max_pool3d(lay[None, None], 3, stride=1,
+                                            padding=(1, 0, 0))[0, 0]
+        for s in range(ms):
+            w0, w1, w2, w3 = (int(v) for v in
+                              g[fd.OCT_HEADER + s * fd.LAYER_INTS + 5:][:4])
+            v = lay[s, 1:-1, 1:-1]
+            win = ((r[1:-1, 1:-1] >= w0) & (r[1:-1, 1:-1] < w1)
+                   & (c[1:-1, 1:-1] >= w2) & (c[1:-1, 1:-1] < w3))
+            ok = win & (v >= pre_t) & (v >= nb[s])
+            layers[o][s, rr_, cc_] = v[core]
+            masks[o][s, rr_, cc_] = ok[core]
+            writes[o][s, rr_, cc_] += 1
+    return layers, masks, writes
