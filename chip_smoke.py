@@ -28,8 +28,12 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      single-frame kernel's rows of each frame; the static-step kernel at
      steps 4..8 with cap 512: the taken mask equal to the twin's, rows
      equal bit for bit to kernel B's, overflow beyond a small cap left
-     untaken; C at D = 64 and 128: |d score| <= 1e-5 and equal indices
-     wherever best - second >= 1e-5; D: orientation within 1e-4 rad
+     untaken; C at D = 64 and 128 (its products are 3xTF32 on the tensor
+     cores): |d score| <= 1e-5 and equal indices wherever best - second >=
+     1e-5; C on the batch's 7 pairs
+     of consecutive frames in one launch: the same against the twin, and
+     equal bit for bit to seven launches of one pair; D: its in-kernel
+     geometry's angles those of the twin on orient_geometry, within 1e-4 rad
      wherever the top-two window gap is >= 1e-5 relative, one of the two
      top windows below that; B, D and the step kernel bit-identical across
      two launches; A, D and B again at the doubled frame's size);
@@ -50,9 +54,11 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      match and each kernel beside its twin with CUDA events (10 warm-up
      runs, median of 50; fewer for the slow twins; the event time includes
      the wrapper's eager glue, so the kernel's own device time is taken
-     beside it, with events around the library call alone), and computes each kernel's bound: the larger of its bytes (inputs read once, outputs
+     beside it, with events around the library call alone), and computes
+     each kernel's bound: the larger of its bytes (inputs read once, outputs
      written once) over the card's memory rate and its operations on this
-     run's data over the card's float32 rate;
+     run's data over the card's float32 rate (kernel C's three TF32 products
+     a score over the card's dense TF32 rate);
   6. checks the reference stereo pair too, when the environment variable
      SURF_REFERENCE_DATA names the directory that holds it.
 
@@ -90,6 +96,7 @@ from cuda_surf_tpu_torch.ops.extrema import _candidate_mask
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
 from cuda_surf_tpu_torch.ops.hessian import response_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
+from cuda_surf_tpu_torch.ops import matcher_kernel
 from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
 from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
                                                  assign_orientations_plain,
@@ -119,10 +126,12 @@ GAP = 1e-5       # top-two orientation window gap below which either wins
 STEP_SDS = (4, 5, 6, 7, 8)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and the float32 rate outside the tensor cores, at which the integer
-# and compare operations of these kernels are counted too.
+# rate, the float32 rate outside the tensor cores, at which the integer
+# and compare operations of these kernels are counted too, and the dense
+# TF32 rate of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 # Operations the function needs, as counted from the twins' expressions:
 # kernel A per output element (8 box sums of 3 adds, dxx / dyy / dxy 8, the
 # determinant 5, the 27-neighbour test 27); kernel B per window sample (the
@@ -165,14 +174,15 @@ def environment() -> dict:
     return env
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, tf32_ops: float = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations over the float32 rate (plus `tf32_ops` over the tensor
+    cores' TF32 rate), whichever is larger."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / FP32_OPS_PER_S * 1e3
+    t_o = (ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S) * 1e3
     return dict(bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations",
-                bound_bytes=int(nbytes), bound_ops=int(ops))
+                bound_bytes=int(nbytes), bound_ops=int(ops + tf32_ops))
 
 
 def own_time(fn, bnd: dict) -> dict:
@@ -319,7 +329,8 @@ def occupancy(cfgs, h, w):
     """Blocks and warps of the redesigned kernels that fit one SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the built kernels):
     kernel A at each configuration's dynamic shared memory, the describe
-    kernel in each mode."""
+    kernel in each mode, kernel C at D = 64 and 128 (entry
+    surf_best2_occupancy), kernel D (surf_orient_occupancy)."""
     out = {}
 
     def ask(entry, *args):
@@ -339,6 +350,15 @@ def occupancy(cfgs, h, w):
                      8 if kw["extended"] else 4)
         out[f"describe_{mode}"] = dict(blocks_per_sm=blocks,
                                        warps_per_sm=4 * blocks)
+    for depth in (64, 128):
+        blocks, warps = matcher_kernel.occupancy(depth)
+        out[f"C_d{depth}"] = dict(blocks_per_sm=blocks,
+                                  warps_per_sm=warps * blocks)
+    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+    _build.launch("surf_orient_occupancy", ctypes.byref(blocks),
+                  ctypes.byref(warps))
+    out["D"] = dict(blocks_per_sm=blocks.value,
+                    warps_per_sm=warps.value * blocks.value)
     return out
 
 
@@ -369,8 +389,9 @@ def orient_live_samples(ii, cfg, kp) -> int:
 
 def check_kernel_d(cfg, kps_dev, tag="main"):
     """Kernel D vs orientation.assign_orientations_plain on the frames'
-    keypoints: 1e-4 rad where the gap is >= GAP, one of the two top
-    windows below it, bit-identical across two launches."""
+    keypoints (the kernel takes the disc's geometry from x, y, scale itself,
+    the twin from orient_geometry): 1e-4 rad where the gap is >= GAP, one of
+    the two top windows below it, bit-identical across two launches."""
     worst, worst_near, n_near, n = 0.0, 0.0, 0, 0
     for ii, kp, ori in kps_dev:
         args = (kp.x, kp.y, kp.scale, kp.valid)
@@ -407,10 +428,11 @@ def check_kernel_d(cfg, kps_dev, tag="main"):
     K = kp.capacity
     ops = (D_OPS_LIVE * orient_live_samples(ii, cfg, kp)
            + D_OPS_WINDOWS * int(kp.valid.sum()))
-    # in: the integral image, 5 int32 per slot, the tables; out: the angles
+    # in: the integral image, x / y / scale / valid per slot, the tables;
+    # out: the angles
     return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p,
                 **own_time(lambda: assign_orientations(ii, cfg, *args),
-                           bound(nbytes(ii) + 24 * K + 4 * 299, ops)))
+                           bound(nbytes(ii) + 17 * K + 4 * 299, ops)))
 
 
 B_MODES = {"upright64": dict(upright=True, extended=False),
@@ -640,28 +662,72 @@ def check_kernel_b_step(kps_dev):
                 plain_ms=ms_p, timed_step=sd, timed_taken=n_taken, **bnd)
 
 
-def check_kernel_c(d1, d2, valid2):
-    """Kernel C vs matcher_kernel._best2_plain at 4096 x 4096 x D."""
-    bk, sk, ik = fused_best2(d1, d2, valid2)
-    bp, sp, ip = _best2_plain(d1, d2, valid2)
+def c_bound(d1, d2, valid2):
+    """Kernel C's bound: a multiply and an add per score element and depth,
+    three such products on the tensor cores as 3xTF32, counted at the dense
+    TF32 rate, then the top-2 compares at the float32 rate."""
+    rows = d1[..., 0].numel()
+    scores = rows * d2.shape[-2]
+    return bound(nbytes(d1, d2, valid2) + 12 * rows, 2 * scores,
+                 3 * 2 * scores * d1.shape[-1])
+
+
+def c_against_twin(name, out, twin):
+    """-> (max |d score|, rows whose index was held); raises above 1e-5 or
+    on an index that differs where best - second >= 1e-5."""
+    (bk, sk, ik), (bp, sp, ip) = out, twin
     err = max((bk - bp).abs().max().item(), (sk - sp).abs().max().item())
     if err > 1e-5:
-        raise AssertionError(f"kernel C: |d score| {err} > 1e-5")
+        raise AssertionError(f"{name}: |d score| {err} > 1e-5")
     clear = (bp - sp) >= 1e-5
     if not torch.equal(ik[clear], ip[clear]):
-        raise AssertionError("kernel C: index differs where best - second "
+        raise AssertionError(f"{name}: index differs where best - second "
                              ">= 1e-5")
-    ms_k, ms_p = time_pair(lambda: fused_best2(d1, d2, valid2),
-                           lambda: _best2_plain(d1, d2, valid2))
+    return err, int(clear.sum())
+
+
+def check_kernel_c(d1, d2, valid2):
+    """Kernel C vs matcher_kernel._best2_plain at 4096 x 4096 x D."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the twin's matmul must run in full float32")
+    run = lambda: fused_best2(d1, d2, valid2)
+    twin = lambda: _best2_plain(d1, d2, valid2)
+    err, n_clear = c_against_twin("kernel C", run(), twin())
+    ms_k, ms_p = time_pair(run, twin)
+    # a part of the function, not the function: the product alone, which
+    # writes the score matrix that kernel C never stores and takes no top-2
+    product_ms = time_ms(lambda: torch.matmul(d1, d2.T))
     emit(dict(phase="kernel_check", kernel="C", max_abs_err=err,
               rows=int(d1.shape[0]), depth=int(d1.shape[1]),
-              index_checked=int(clear.sum())))
-    n1, n2, d = d1.shape[0], d2.shape[0], d1.shape[1]
-    # a multiply and an add per score element, then the top-2 compares
+              index_checked=n_clear))
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                **own_time(lambda: fused_best2(d1, d2, valid2),
-                           bound(nbytes(d1, d2, valid2) + 12 * n1,
-                                 2 * n1 * n2 * d + 2 * n1 * n2)))
+                product_only_ms=product_ms,
+                **own_time(run, c_bound(d1, d2, valid2)))
+
+
+def check_kernel_c_pairs(d1, d2, valid2):
+    """Kernel C on P pairs in one launch, (P, 4096, 64) x (P, 4096, 64):
+    against the twin, and equal bit for bit to P launches of one pair; one
+    launch timed beside the P."""
+    P = d1.shape[0]
+    one = lambda: fused_best2(d1, d2, valid2)
+    each = lambda: [fused_best2(d1[p], d2[p], valid2[p]) for p in range(P)]
+    before = fused_best2.launches
+    out = one()
+    if fused_best2.launches != before + 1:
+        raise AssertionError("kernel C on pairs: not one launch")
+    err, _ = c_against_twin(f"kernel C, {P} pairs", out,
+                            _best2_plain(d1, d2, valid2))
+    for p, single in enumerate(each()):
+        if not all(torch.equal(a[p], b) for a, b in zip(out, single)):
+            raise AssertionError(f"kernel C: pair {p} of {P} in one launch "
+                                 "differs from its own launch")
+    res = dict(max_abs_err=err, pairs=P,
+               **own_time(one, c_bound(d1, d2, valid2)))
+    res["each_kernel_us"] = own_time(each, res)["kernel_us"]
+    emit(dict(phase="kernel_check", kernel="C_pairs", pairs=P,
+              equals_single_launches=True, launches=1, max_abs_err=err))
+    return res
 
 
 def check_keypoints_against_golden(f, kp, golden):
@@ -794,7 +860,7 @@ def run_batch_path(cfg, frames, golden):
     frames_of = lambda k, sl: Keypoints(*[a[sl] for a in k])
     m = bs.match(frames_of(kb, slice(0, B - 1)), db[:-1],
                  frames_of(kb, slice(1, B)), db[1:])
-    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": B - 1})
+    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1})
     if db.shape != (B, cfg.max_pts, cfg.nfeatures) or \
             kb.count.shape != (B,) or kb.x.shape != (B, cfg.max_pts):
         raise AssertionError("batch: outputs malformed")
@@ -963,15 +1029,14 @@ def main() -> int:
                                     expected)
     counts["step_routed"] = run_step_routed_path(cfg, frames, golden["main"],
                                                  descs)
-    *_, counts["batch"] = run_batch_path(cfg, batch_frames, golden["batch"])
+    kb, db, counts["batch"] = run_batch_path(cfg, batch_frames,
+                                             golden["batch"])
 
     res["C"] = check_kernel_c(descs[0], descs[1], kps[1].valid)
     c128 = check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
-    res["C"].update(d128_ms=c128["ms"], d128_plain_ms=c128["plain_ms"],
-                    d128_bound_ms=c128["bound_ms"],
-                    d128_kernel_us=c128["kernel_us"],
-                    max_abs_err=max(res["C"]["max_abs_err"],
-                                    c128["max_abs_err"]))
+    res["C"].update(d128=c128, pairs=check_kernel_c_pairs(
+        db[:-1].contiguous(), db[1:].contiguous(), kb.valid[1:].contiguous()),
+        max_abs_err=max(res["C"]["max_abs_err"], c128["max_abs_err"]))
 
     times = lambda r: {k: r[k] for k in ("kernel_us", "bound_ms", "bound_by",
                                          "bound_share")}
@@ -1006,10 +1071,20 @@ def main() -> int:
         for mode, r in res[k]["modes"].items():
             emit(dict(metric=f"kernel_{k}_{mode}_ms", value=r["ms"],
                       plain_ms=r["plain_ms"], **times(r), card=card))
-    emit(dict(metric="kernel_C_d128_ms", value=res["C"]["d128_ms"],
-              plain_ms=res["C"]["d128_plain_ms"],
-              bound_ms=res["C"]["d128_bound_ms"],
-              kernel_us=res["C"]["d128_kernel_us"], card=card))
+    c128, cpairs = res["C"]["d128"], res["C"]["pairs"]
+    emit(dict(metric="kernel_C_d128_ms", value=c128["ms"],
+              plain_ms=c128["plain_ms"], **times(c128), card=card))
+    emit(dict(metric="kernel_C_pairs_us", value=cpairs["kernel_us"],
+              each_kernel_us=cpairs["each_kernel_us"], pairs=cpairs["pairs"],
+              **times(cpairs), what="kernel C's own device time on the "
+              "batch's pairs of consecutive frames, one launch beside one "
+              "launch a pair", card=card))
+    for depth, r in ((64, res["C"]), (128, c128)):
+        emit(dict(metric=f"matmul_d{depth}_product_only_ms",
+                  value=r["product_only_ms"], what="torch.matmul(d1, d2.T) "
+                  "alone in float32, TF32 off: a part of kernel C's function "
+                  "(it writes the 67 MB score matrix and takes no top-2)",
+                  card=card))
     for k, r in dbl.items():
         for mode, rm in r.get("modes", {"": r}).items():
             emit(dict(metric=f"doubled_kernel_{k}{'_' + mode if mode else ''}"
@@ -1059,19 +1134,20 @@ def main() -> int:
             row["modes"] = r["modes"]
         if k in ("B", "B_stacked", "B_step"):
             row["body"] = csrc + "describe_body.cuh"
-        if k in ("A", "B", "B_stacked", "B_step"):
+        if k in ("A", "B", "B_stacked", "B_step", "C", "D"):
             # what fits an SM, asked of the built kernels
             row["occupancy"] = {n: v for n, v in occ.items() if n.startswith(
-                "A_" if k == "A" else "describe_")}
+                {"A": "A_", "C": "C_", "D": "D"}.get(k, "describe_"))}
         if k == "A":
             row["stack"] = r["stack"]
         if k == "B_step":
             row.update(timed_step=r["timed_step"],
                        timed_taken=r["timed_taken"])
         if k == "C":
-            row.update(d128_ms=r["d128_ms"], d128_plain_ms=r["d128_plain_ms"],
-                       d128_bound_ms=r["d128_bound_ms"],
-                       d128_kernel_us=r["d128_kernel_us"])
+            # the bound counts three TF32 products a score at the tensor
+            # cores' dense rate
+            row.update(product_only_ms=r["product_only_ms"], d128=r["d128"],
+                       pairs=r["pairs"])
         if k == "D":
             row["replaces_mode"] = "grids"
         if k in dbl:

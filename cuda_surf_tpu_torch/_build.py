@@ -4,7 +4,7 @@ The sources have a plain C interface and include no PyTorch header, so
 `nvcc` compiles them in seconds: one `nvcc -c` per source, all started
 together, then one link into a shared library, which is loaded with
 `ctypes`.  The build runs at the first kernel launch of a process, never
-at import, and is redone when a source's hash changes.  Every C
+at import, and is redone when a source's hash or a flag changes.  Every C
 entry point returns `cudaGetLastError()` after its launch; `launch` calls
 one and raises on a non-zero code, and inside `record_launches()` it also
 brackets the call with two CUDA events, which gives a kernel's own device
@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # ii, nframes, ih, iw, plan, ntiles, smem_bytes, rr, pre_t, layers,
     # masks, stream
@@ -51,11 +52,16 @@ _SIGNATURES = {
     # out, stream
     "surf_describe_step": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                            _I, _P, _P],
-    # ii, ih, iw, meta, tab, K, out, stream
-    "surf_orient": [_P, _I, _I, _P, _P, _I, _P, _P],
-    # d1, d2, valid2, N1, N2, D, splits, part best/second/index,
-    # best, second, index, stream
-    "surf_best2": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # ii, ih, iw, x, y, scale, valid, doubled, tab, K, out, stream
+    "surf_orient": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+    # blocks(out), warps per block(out)
+    "surf_orient_occupancy": [_P, _P],
+    # d1, d2, valid2, P, N1, N2, D, splits, part best/second/index, done,
+    # epoch, best, second, index, stream
+    "surf_best2": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _U, _P, _P,
+                   _P, _P],
+    # D, blocks(out), warps per block(out)
+    "surf_best2_occupancy": [_I, _P, _P],
 }
 
 

@@ -98,8 +98,7 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
         _make_keypoints(ii, cand, cfg)
     ori = torch.zeros_like(x)
     if compute_descriptors and not cfg.upright:
-        ori = assign_orientations(ii, cfg, x, y, scale, valid)
-        ori = torch.where(valid, ori, 0.0)
+        ori = assign_orientations(ii, cfg, x, y, scale, valid)  # 0 if invalid
     kps = Keypoints(x=x, y=y, scale=scale, strength=strength,
                     laplace=laplace, ori=ori, octave=octave,
                     valid=valid, count=count)

@@ -17,12 +17,14 @@ from .matcher_kernel import NEG, _best2_plain, fused_best2
 
 
 def _matches(best, second, index, valid1, x2, y2) -> Matches:
+    """Matches from the top-2 of each set-1 row; a leading pair dimension
+    on every argument is kept."""
     il = index.long()
     return Matches(
         score=best,
         index=index,
-        match_x=x2[il],
-        match_y=y2[il],
+        match_x=torch.gather(x2, -1, il),
+        match_y=torch.gather(y2, -1, il),
         ambiguity=torch.where(second > NEG, second / (best + 1e-6),
                               torch.zeros_like(best)),
         valid=valid1 & (best > NEG),
@@ -39,6 +41,8 @@ def match_keypoints(kp1: Keypoints, desc1: torch.Tensor,
                     kp2: Keypoints, desc2: torch.Tensor,
                     cross_check: bool = False) -> Matches:
     """One-directional set1 -> set2 matching (the reference semantics).
+    Without `cross_check` the keypoint fields and descriptors may carry a
+    leading pair dimension: P pairs are matched in one kernel launch.
 
     With `cross_check`, matches that are not mutual nearest neighbours
     are marked invalid, from one extra masked argmax over the same score

@@ -8,9 +8,11 @@ magnitude, angle x magnitude), slides a pi/3 window with fractional edges
 over them and returns the mean angle of the first window with the largest
 weighted magnitude.
 
-`assign_orientations` launches kernel D (csrc/orient.cu) on a CUDA tensor
-and runs the plain twin `assign_orientations_plain` on a CPU tensor; any
-other device raises.  The twin follows the JAX package's gather path:
+`assign_orientations` launches kernel D (csrc/orient.cu) on a CUDA tensor,
+on the keypoints' x, y, scale and valid as they are (the kernel takes the
+disc's geometry from them itself), and runs the plain twin
+`assign_orientations_plain` on a CPU tensor; any other device raises.
+The twin follows the JAX package's gather path:
 one-hot segment sums per chunk of keypoints, the +/-2pi wrapped copies of
 the angle-mass histogram, and the 11-bin window sums as full-fp32
 matmuls (the package turns TF32 off).  Invalid slots get 0.
@@ -119,9 +121,19 @@ def _sample_grid(device):
     return y1, x1, y1 * y1 + x1 * x1
 
 
-def _histogram_chunk(ii, lut, cx, cy, step, pixsi, valid):
-    """-> (k, NBIN, 4) per-bin sums [count, angle, psum, angle*psum] for a
-    chunk of keypoints (the JAX gather path's `one`, batched)."""
+def disc_positions() -> np.ndarray:
+    """Indices (dy + 9) * 19 + (dx + 9) of the 253 grid positions inside
+    the disc, increasing: kernel D's table DISC_Q."""
+    g = np.arange(-ORADIUS, ORADIUS + 1)
+    return np.flatnonzero((g[:, None] ** 2 + g[None, :] ** 2).ravel()
+                          < ORADIUS_SQ)
+
+
+def disc_samples(ii, lut, cx, cy, step, pixsi, valid):
+    """-> (ok, bin, angle, psum), each (k, 361): per sample of the 19x19
+    grid, in index order, whether it counts (inside the disc and the frame,
+    nonzero gradient, valid keypoint), its histogram bin, its angle and
+    its Gaussian-weighted magnitude; angle is 0 where not ok."""
     ih, iw = ii.shape
     y1, x1, distsq = _sample_grid(ii.device)
     col = lambda a: a[:, None]
@@ -144,6 +156,13 @@ def _histogram_chunk(ii, lut, cx, cy, step, pixsi, valid):
     hid = torch.remainder(torch.trunc((angle + _PI) / _SEP).to(torch.int64),
                           NBIN)
     psum = lut[torch.clamp(distsq, max=lut.shape[0] - 1).long()] * mag
+    return ok, hid, angle, psum
+
+
+def _histogram_chunk(ii, lut, cx, cy, step, pixsi, valid):
+    """-> (k, NBIN, 4) per-bin sums [count, angle, psum, angle*psum] for a
+    chunk of keypoints (the JAX gather path's `one`, batched)."""
+    ok, hid, angle, psum = disc_samples(ii, lut, cx, cy, step, pixsi, valid)
     onehot = (torch.where(ok, hid, NBIN)[..., None]
               == torch.arange(NBIN, device=ii.device)).to(torch.float32)
     vals = torch.stack([torch.ones_like(psum), angle, psum, angle * psum], -1)
@@ -222,15 +241,21 @@ def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
                          f"{ii.device}")
     _build.require_cuda(ii, "ii", torch.int32)
     K = x.shape[0]
-    cx, cy, step, pixsi = orient_geometry(x, y, scale, cfg.doubled)
-    meta = torch.stack([cx, cy, step, pixsi, valid.to(torch.int32)]
-                       ).to(torch.int32).contiguous()
+    x, y, scale = x.contiguous(), y.contiguous(), scale.contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    for name, t in (("x", x), ("y", y), ("scale", scale)):
+        _build.require_cuda(t, name, torch.float32)
+    _build.require_cuda(valid, "valid", torch.bool)
+    if not x.shape == y.shape == scale.shape == valid.shape == (K,):
+        raise ValueError("assign_orientations: x, y, scale and valid must "
+                         "all be (K,)")
     ftab = tables(ii.device)["packed"]
     out = torch.empty((K,), dtype=torch.float32, device=ii.device)
     ih, iw = ii.shape
     with torch.cuda.device(ii.device):
-        _build.launch("surf_orient", _build.ptr(ii), ih, iw,
-                      _build.ptr(meta), _build.ptr(ftab), K, _build.ptr(out),
+        _build.launch("surf_orient", _build.ptr(ii), ih, iw, _build.ptr(x),
+                      _build.ptr(y), _build.ptr(scale), _build.ptr(valid),
+                      int(cfg.doubled), _build.ptr(ftab), K, _build.ptr(out),
                       _build.stream(ii.device))
     assign_orientations.launches += 1
     return out

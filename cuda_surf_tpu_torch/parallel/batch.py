@@ -40,8 +40,7 @@ class BatchSurf:
                 torch.stack(descs))
 
     def match(self, kp1, d1, kp2, d2) -> Matches:
-        """One-directional matching of corresponding frame pairs."""
-        pairs = [match_keypoints(Keypoints(*[f[b] for f in kp1]), d1[b],
-                                 Keypoints(*[f[b] for f in kp2]), d2[b])
-                 for b in range(d1.shape[0])]
-        return Matches(*[torch.stack(f) for f in zip(*pairs)])
+        """One-directional matching of corresponding frame pairs: all
+        pairs in one launch of kernel C, each pair's result that of
+        `match_keypoints` on the pair alone."""
+        return match_keypoints(kp1, d1, kp2, d2)

@@ -6,7 +6,8 @@ Splits `frontend.detect_and_compute` on frame 0 of the 1280x960 main pair
 main config (upright) and the rotated config (upright=False): integral
 image, kernel A, detection (compaction + subpixel walk), makePoint +
 Laplacian sign, orientation (kernel D, rotated only), descriptor
-geometry, kernel B's rows, normalisation, and the whole frame.  Each
+geometry, kernel B's rows, normalisation, the whole frame, and the match
+of frame 0 against frame 1 (kernel C and its glue).  Each
 stage runs on the outputs of the stages before it.  For each it prints
 
   - `ms`: device time with CUDA events, median of --runs calls after 5
@@ -23,23 +24,32 @@ Then the batch path, `frontend.detect_and_compute_batch` on the
 BATCH_FRAMES frames of cuda_surf_tpu_torch.io.main_batch at the main
 config, split the same way (integral images, kernel A on the stack,
 the stacked detection, makePoint + the spread to (B, max_pts), descriptor
-geometry, kernel B on the stacked frames, normalisation, the whole batch),
+geometry, kernel B on the stacked frames, normalisation, the whole batch,
+BatchSurf.match of the pairs of consecutive frames),
 with ms and device µs also per frame, and, with --doubled, the two
 doubled pair paths like the first table.
 
-With --kernels it times kernel A and the describe kernels alone instead,
-at the main path's shapes: A on one frame, on the stack of BATCH_FRAMES
-frames and on the doubled frame (a 2560x1920 integral image); kernel B on
-frame 0's keypoints, upright / rotated x 64 / 128-d; B_stacked on every
-frame's slots in one launch, 64-d; B_step, the static-step kernel at step
-4.  One JSON object per kernel: `kernel_us`, the device time of the
+With --kernels it times the kernels alone instead, at the main path's
+shapes: A on one frame, on the stack of BATCH_FRAMES frames and on the
+doubled frame (a 2560x1920 integral image); kernel B on frame 0's
+keypoints, upright / rotated x 64 / 128-d; B_stacked on every frame's
+slots in one launch, 64-d; B_step, the static-step kernel at step 4; C on
+the descriptors of frames 0 -> 1 at 64-d (C_d64) and 128-d (C_d128), on the
+BATCH_FRAMES - 1 pairs of consecutive frames in one launch (C_pairs) and
+in one launch a pair (C_each); D on frame 0's keypoints (D_frame) and on
+the doubled frame's (D_doubled).  One JSON object per kernel: `kernel_us`, the device time of the
 library call alone (CUDA events around it, `_build.record_launches`,
 median of 20 calls after 3), `ms` as above, `device_ops` and `device_us`
 from the profiler, and `sha`, a hash of the output's bytes, so that two
 builds of the kernels can be held against each other bit for bit.
 
     python3 probe_stages.py [--runs 30] [--doubled]
-    python3 probe_stages.py --kernels [--only A] [--tag NAME]
+    python3 probe_stages.py --kernels [--only A,C_d] [--tag NAME]
+    python3 probe_stages.py --rates
+
+--rates builds and runs probe_rates.cu (beside this script) instead: the
+rates of the mma and FMA instructions that bound kernel C, in loops without
+memory.
 
 With no CUDA device it exits with code 2 before printing any result.
 """
@@ -52,10 +62,12 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
-from cuda_surf_tpu_torch import SurfConfig, _build
+from cuda_surf_tpu_torch import BatchSurf, SurfConfig, _build, match_keypoints
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
                                         ROTATED_CONFIG)
@@ -67,14 +79,15 @@ from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, l2_normalize
 from cuda_surf_tpu_torch.ops.extrema import detect
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
+from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
 from cuda_surf_tpu_torch.ops.orientation import assign_orientations
 from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows, step_rows
 
 
 ORDER = ("integral image", "kernel A, all octaves", "detect: compaction + walk",
-         "makePoint + Laplacian", "orientation (kernel D + mask)",
+         "makePoint + Laplacian", "orientation (kernel D)",
          "descriptor geometry", "kernel B rows", "normalise",
-         "one frame, whole")
+         "one frame, whole", "match, frame 0 -> 1")
 
 
 def event_ms(fn, runs: int, warmup: int = 5) -> float:
@@ -108,16 +121,17 @@ def device_ops(fn):
     return len(ev), sum(e.time_range.elapsed_us() for e in ev)
 
 
-def stages(cfg: SurfConfig, img: torch.Tensor):
-    """[(name, fn)] of one frame, each fn on fixed earlier outputs."""
+def stages(cfg: SurfConfig, img: torch.Tensor, nxt: torch.Tensor):
+    """[(name, fn)] of one frame `img`, each fn on fixed earlier outputs;
+    the match is against the frame `nxt`."""
     h, w = img.shape
+    (k0, d0), (k1, d1) = (detect_and_compute(f, cfg) for f in (img, nxt))
     sched = cfg.hessian_schedule(h, w)
     ii = integral_image(img, cfg.doubled)
     pyr, masks = fused_pyramid(ii, cfg, h, w)
     cand = detect(pyr, sched, cfg, cand_masks=masks)
     _, valid, x, y, scale, *_ = _make_keypoints(ii, cand, cfg)
-    orient = lambda: torch.where(
-        valid, assign_orientations(ii, cfg, x, y, scale, valid), 0.0)
+    orient = lambda: assign_orientations(ii, cfg, x, y, scale, valid)
     ori = torch.zeros_like(x) if cfg.upright else orient()
     geom = desc_geometry(cfg, x, y, scale, ori)
     rows = descriptor_rows(ii, cfg, *geom, valid)
@@ -127,13 +141,14 @@ def stages(cfg: SurfConfig, img: torch.Tensor):
             lambda: detect(pyr, sched, cfg, cand_masks=masks)),
            ("makePoint + Laplacian", lambda: _make_keypoints(ii, cand, cfg))]
     if not cfg.upright:
-        out.append(("orientation (kernel D + mask)", orient))
+        out.append(("orientation (kernel D)", orient))
     out += [("descriptor geometry",
              lambda: desc_geometry(cfg, x, y, scale, ori)),
             ("kernel B rows", lambda: descriptor_rows(ii, cfg, *geom, valid)),
             ("normalise",
              lambda: torch.where(valid[:, None], l2_normalize(rows), 0.0)),
-            ("one frame, whole", lambda: detect_and_compute(img, cfg))]
+            ("one frame, whole", lambda: detect_and_compute(img, cfg)),
+            ("match, frame 0 -> 1", lambda: match_keypoints(k0, d0, k1, d1))]
     return out
 
 
@@ -173,7 +188,17 @@ def batch_stages(cfg: SurfConfig, imgs: torch.Tensor):
              lambda: descriptor_rows(ii, cfg, *geom, valid, frame=frame)),
             ("normalise",
              lambda: torch.where(valid[:, None], l2_normalize(rows), 0.0)),
-            ("one batch, whole", lambda: detect_and_compute_batch(imgs, cfg))]
+            ("one batch, whole", lambda: detect_and_compute_batch(imgs, cfg)),
+            (f"match of {B - 1} pairs", match_pairs(cfg, imgs))]
+
+
+def match_pairs(cfg: SurfConfig, imgs: torch.Tensor):
+    """BatchSurf.match of frame i -> i + 1 over the batch, as a stage."""
+    kb, db = detect_and_compute_batch(imgs, cfg)
+    bs = BatchSurf(cfg, device="cuda")
+    cut = lambda sl: type(kb)(*[a[sl] for a in kb])
+    k1, k2 = cut(slice(0, -1)), cut(slice(1, None))
+    return lambda: bs.match(k1, db[:-1], k2, db[1:])
 
 
 def probe(path, name, fn, runs, card, whole, per=1):
@@ -191,20 +216,19 @@ def probe(path, name, fn, runs, card, whole, per=1):
     return row
 
 
-def pair_table(paths, img, runs, card):
+def pair_table(paths, imgs, runs, card):
     table = {}
     for path, config in paths:
-        for name, fn in stages(SurfConfig(**config), img):
+        for name, fn in stages(SurfConfig(**config), imgs[0], imgs[1]):
             table.setdefault(name, {})[path] = probe(
                 path, name, fn, runs, card, "one frame, whole")
     a, b = (p for p, _ in paths)
     print(f"\n{card}; CUDA events, median of {runs}; torch.profiler\n")
     print(f"| Stage | {a} ms | ops | device µs | {b} ms | ops | device µs |")
     print("|---|---|---|---|---|---|---|")
-    cell = lambda r: ("— | — | —" if r is None else
-                      f"{r['ms']:.3f} | {r['device_ops']} | "
-                      + ("—" if r["device_us"] is None
-                         else f"{r['device_us']:.1f}"))
+    cell = lambda r: ("— | — | —" if r is None else f"{r['ms']:.3f} | "
+                      + ("— | —" if r["device_us"] is None else
+                         f"{r['device_ops']} | {r['device_us']:.1f}"))
     for name in sorted(table, key=ORDER.index):
         r = table[name]
         print(f"| {name} | {cell(r.get(a))} | {cell(r.get(b))} |")
@@ -237,10 +261,11 @@ def flatten(out):
 
 
 def kernel_table(imgs, runs, card, only, tag):
-    """Kernel A and the describe kernels alone, one JSON object each."""
+    """The kernels alone, one JSON object each; `only`: name prefixes."""
+    wanted = lambda name: any(name.startswith(o) for o in only)
 
     def report(name, fn):
-        if not name.startswith(only):
+        if not wanted(name):
             return
         h = hashlib.sha256()
         for t in flatten(fn()):
@@ -259,7 +284,8 @@ def kernel_table(imgs, runs, card, only, tag):
     dcfg = SurfConfig(**DOUBLED_CONFIG)
     iid = integral_image(imgs[0], True)
     report("A_doubled", lambda: fused_pyramid(iid, dcfg, h, w))
-    if not any(n.startswith(only) for n in ("B_", "B_stacked_", "B_step")):
+    group = lambda g: any(o.startswith(g) or g.startswith(o) for o in only)
+    if not any(group(g) for g in ("B_", "C_", "D_")):
         return
 
     kb, _ = detect_and_compute_batch(imgs, cfg, compute_descriptors=False)
@@ -285,17 +311,57 @@ def kernel_table(imgs, runs, card, only, tag):
     v = kb.valid[0]
     report("B_step", lambda: step_rows(ii[0], cfg, *g0, v, elig=v, sd=4)[0])
 
+    report("D_frame", lambda: assign_orientations(
+        ii[0], rcfg, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0]))
+    if wanted("D_doubled"):
+        drcfg = SurfConfig(**DOUBLED_ROTATED_CONFIG)
+        kd, _ = detect_and_compute(imgs[0], drcfg, compute_descriptors=False)
+        report("D_doubled", lambda: assign_orientations(
+            iid, drcfg, kd.x, kd.y, kd.scale, kd.valid))
+    if not group("C_"):
+        return
+    rows = {}
+    for mode in ("upright64", "upright128"):
+        c = SurfConfig(**dict(MAIN_CONFIG, **KERNEL_MODES[mode]))
+        g = desc_geometry(c, flat(kb.x), flat(kb.y), flat(kb.scale), flat(ori))
+        rows[mode] = l2_normalize(descriptor_rows(
+            ii, c, *g, flat(kb.valid), frame=frame)).reshape(B, -1, c.nfeatures)
+    d64, d128 = rows["upright64"], rows["upright128"]
+    report("C_d64", lambda: fused_best2(d64[0], d64[1], kb.valid[1]))
+    report("C_d128", lambda: fused_best2(d128[0], d128[1], kb.valid[1]))
+    d1, d2, v2 = d64[:-1].contiguous(), d64[1:].contiguous(), \
+        kb.valid[1:].contiguous()
+    report("C_each", lambda: [fused_best2(d1[p], d2[p], v2[p])
+                              for p in range(B - 1)])
+    report("C_pairs", lambda: fused_best2(d1, d2, v2))
+
+
+def instruction_rates(card) -> int:
+    """Build probe_rates.cu with the kernel library's flags into a temporary
+    directory, run it and print its lines, each with the card."""
+    src = Path(__file__).resolve().parent / "probe_rates.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = f"{tmp}/probe_rates"
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", exe,
+                        str(src)], check=True, stdout=sys.stderr)
+        out = subprocess.run([exe], capture_output=True, text=True, check=True)
+    for line in out.stdout.splitlines():
+        print(json.dumps(dict(json.loads(line), card=card)), flush=True)
+    return 0
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=30)
     ap.add_argument("--kernels", action="store_true",
-                    help="time kernel A and the describe kernels alone instead")
+                    help="time the kernels alone instead")
     ap.add_argument("--only", default="",
                     help="with --kernels: only the kernels whose name starts "
-                         "with this")
+                         "with one of these, separated by commas")
     ap.add_argument("--tag", default="", help="with --kernels: copied to "
                     "every line")
+    ap.add_argument("--rates", action="store_true",
+                    help="run the instruction-rate loops instead")
     ap.add_argument("--doubled", action="store_true",
                     help="also the two doubled pair paths")
     args = ap.parse_args()
@@ -305,16 +371,18 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if args.rates:
+        return instruction_rates(card)
     imgs = torch.as_tensor(main_batch(BATCH_FRAMES)).cuda()
     if args.kernels:
-        kernel_table(imgs, args.runs, card, args.only, args.tag)
+        kernel_table(imgs, args.runs, card, args.only.split(","), args.tag)
         return 0
     pair_table((("upright", MAIN_CONFIG), ("rotated", ROTATED_CONFIG)),
-               imgs[0], args.runs, card)
+               imgs, args.runs, card)
     if args.doubled:
         pair_table((("doubled", DOUBLED_CONFIG),
                     ("doubled rotated", DOUBLED_ROTATED_CONFIG)),
-                   imgs[0], args.runs, card)
+                   imgs, args.runs, card)
     B = imgs.shape[0]
     runs = max(args.runs // 3, 5)
     rows = [probe("batch", name, fn, runs, card, "one batch, whole", per=B)

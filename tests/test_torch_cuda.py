@@ -4,7 +4,7 @@ Every test here is marked `cuda` and skips without a GPU.  The file
 imports no jax (the machine with the card has none), so it runs there
 on its own, without tests/conftest.py, which imports jax:
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    python -m pytest --noconftest -q tests/test_torch_cuda*.py
 
 Tolerances: kernel A bit-exact (its determinant avoids FMA
 contraction), one launch for all octaves, on one frame or on a stack of
@@ -12,9 +12,11 @@ frames, whose frames equal the single-frame launch's; kernel B, in each of its f
 64 / 128-d), row cosine >= 0.99999 and bit-identical across launches
 (fixed-order reduction); kernel C, at D = 64 and 128, scores within
 1e-5, indices equal wherever best - second >= 1e-5, exact ties to the
-smaller index; kernel D orientations within 1e-4 rad wherever the
-top-two window gap is >= 1e-5 relative, one of the two top windows below
-that, and bit-identical across launches.  Kernel B on stacked frames:
+smaller index (its two product engines, the pair dimension and the splits:
+tests/test_torch_cuda_matcher.py); kernel D orientations within 1e-4 rad
+wherever the top-two window gap is >= 1e-5 relative, one of the two top
+windows below that, and bit-identical across launches (its in-kernel
+geometry: tests/test_torch_cuda_orient.py).  Kernel B on stacked frames:
 rows equal bit for bit to the single-frame kernel's on each frame, and the
 twin with the frame offset at row cosine >= 0.99999.  The static-step
 kernel: the taken mask equal to the twin's and rows equal bit for bit to
@@ -123,7 +125,7 @@ def test_kernel_d_matches_twin(cuda_device, source):
     check_orientations(plain, got, ws, wa, valid)
 
 
-# set-2 splits per row block: 3, 5, 1, and 4 with the last split empty
+# set 2 in 2, 4, 1 and 3 splits per row block
 @pytest.mark.parametrize("n1,n2", [(100, 130), (4096, 4096), (63, 1),
                                    (4224, 300)])
 def test_kernel_c_matches_twin(cuda_device, n1, n2):
@@ -189,6 +191,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     v = torch.ones(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         fused_best2(d, d, v)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_best2(d.float()[:, :48].contiguous(),
+                    d.float()[:, :48].contiguous(), v)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        fused_best2(d.float()[None], d.float()[None], v)
     ii = torch.zeros((50, 60), dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         tfd.fused_pyramid(ii, cst.SurfConfig(noctaves=1), 49, 59)

@@ -7,6 +7,8 @@ port's fp32 products round differently), indices wherever best - second
 >= 1e-5.  The tie rules are compared exactly on a score matrix handed to
 both packages: first index wins an exact tie, second best excludes only
 the argmax column, invalid columns score -1e30.
+
+The pair dimension and kernel C's merge rule: tests/test_torch_matcher_pairs.py.
 """
 
 import jax.numpy as jnp
@@ -113,4 +115,3 @@ def test_match_keypoints_matches_jax(sets, cross_check):
                                atol=1e-4)
     if cross_check:
         assert 0 < mt.valid.sum() < valid1.sum()
-

@@ -14,6 +14,8 @@ may pick either of the two top windows, and must agree with one of them
 to 1e-4 rad.  The two sum the histogram in different orders, and the
 JAX CPU reference may contract FMAs, so they are not compared bit for
 bit.  `fast_atan2` agrees to 4e-7 rad (one float32 ulp of pi).
+
+Kernel D's plan, walked in numpy: tests/test_torch_orientation_plan.py.
 """
 
 import jax

@@ -146,6 +146,110 @@ def match_sets():
     return d1, d2, valid1, valid2
 
 
+def merge_top2(a, b):
+    """Kernel C's merge of two partial top-2s (csrc/match.cu:merge_top2),
+    each (best, second, index) of one score row: the larger best wins, the
+    smaller index on equal bests, whose tie value becomes second."""
+    (b1, s1, i1), (b2, s2, i2) = a, b
+    if b2 > b1 or (b2 == b1 and i2 < i1):
+        return b2, (b1 if b2 == b1 else max(s2, b1)), i2
+    return b1, (b1 if b2 == b1 else max(s1, b2)), i1
+
+
+def fold_top2(scores, cols):
+    """Kernel C's running top-2 of one thread over the score row's columns
+    `cols`, visited in increasing order, from (-1e30, -1e30, 0)."""
+    neg = np.float32(-1e30)
+    best, second, index = neg, neg, 0
+    for c in cols:
+        v = scores[c]
+        second = max(second, min(v, best))
+        if v > best:
+            best, index = v, int(c)
+    return best, second, index
+
+
+def emulate_kernel_d(ii, x, y, scale, valid, doubled=False):
+    """Kernel D (csrc/orient.cu) in numpy, keypoint by keypoint, following
+    the kernel's plan: the 253 disc positions of its table in 8 rounds of 32
+    lanes; a sample's rank in its bin is the bin's count before the round
+    plus the lower lanes of the round in the same bin; an exclusive prefix
+    over the 72 counts gives the bins' offsets; the samples' (angle,
+    weighted magnitude) are scattered to offset + rank; each bin's three
+    sums run over its own run in sequential float32 adds; the 72 windows
+    follow in the twin's order and the first maximum wins.  The samples'
+    values come from the twin's own `disc_samples`.
+    -> (angles (K,) float32, per-bin sums (K, 72, 3) float32
+    [angle, psum, angle*psum], counts (K, 72))."""
+    from cuda_surf_tpu_torch.config import HWN, NBIN
+    from cuda_surf_tpu_torch.ops import orientation as to
+    f32 = np.float32
+    tab = to.tables(ii.device)
+    geom = to.orient_geometry(x, y, scale, doubled)
+    ok, hid, angle, psum = (a.numpy() for a in to.disc_samples(
+        ii, tab["lut"], *geom, valid))
+    table = to.disc_positions()
+    assert table.shape == (253,)
+    K = ok.shape[0]
+    bins, base_l, base_r = (tab[k].numpy() for k in ("bins", "base_l",
+                                                     "base_r"))
+    two_pi, sep = f32(2 * np.pi), f32(to._SEP)
+    out = np.zeros(K, f32)
+    sums = np.zeros((K, NBIN, 3), f32)
+    counts = np.zeros((K, NBIN), np.int64)
+    for k in np.flatnonzero(valid.numpy()):
+        cnt = np.zeros(NBIN, np.int64)
+        placed = []                                   # (bin, rank, sample)
+        for r0 in range(0, len(table), 32):           # a round of 32 lanes
+            lanes = [q for q in table[r0:r0 + 32] if ok[k, q]]
+            before = cnt.copy()
+            for n, q in enumerate(lanes):
+                b = hid[k, q]
+                lower = sum(hid[k, p] == b for p in lanes[:n])
+                placed.append((b, before[b] + lower, q))
+                cnt[b] += 1
+        off = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        s_ang = np.zeros(256, f32)
+        s_ps = np.zeros(256, f32)
+        for b, rank, q in placed:
+            s_ang[off[b] + rank] = angle[k, q]
+            s_ps[off[b] + rank] = psum[k, q]
+        part, avg = np.zeros(NBIN, f32), np.zeros(NBIN, f32)
+        pas = np.zeros(NBIN + 2 * HWN, f32)
+        for b in range(NBIN):
+            asum = ps = aps = f32(0)
+            for e in range(off[b], off[b] + cnt[b]):
+                asum = f32(asum + s_ang[e])
+                ps = f32(ps + s_ps[e])
+                aps = f32(aps + f32(s_ang[e] * s_ps[e]))
+            sums[k, b] = asum, ps, aps
+            part[b] = ps
+            avg[b] = f32(asum / f32(cnt[b])) if cnt[b] else bins[b]
+            pas[b + HWN] = aps
+            if b >= NBIN - HWN:
+                pas[b - (NBIN - HWN)] = f32(aps - f32(two_pi * ps))
+            if b < HWN:
+                pas[b + NBIN + HWN] = f32(aps + f32(two_pi * ps))
+        counts[k] = cnt
+        top = top_a = None
+        for w in range(NBIN):
+            ws = was = f32(0)
+            for j in range(-HWN + 1, HWN):
+                ws = f32(ws + part[(w + j) % NBIN])
+                was = f32(was + pas[w + j + HWN])
+            ratio_l = f32(f32(base_l[w] - avg[w]) / sep)
+            ws = f32(ws + f32(ratio_l * part[(w - HWN) % NBIN]))
+            was = f32(was + f32(ratio_l * pas[w]))
+            ratio_r = f32(f32(avg[w] + base_r[w]) / sep)
+            ws = f32(ws + f32(ratio_r * part[(w + HWN) % NBIN]))
+            was = f32(was + f32(ratio_r * pas[w + 2 * HWN]))
+            if top is None or ws > top:               # first maximum
+                top, top_a = ws, was
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out[k] = f32(top_a / top)
+    return out, sums, counts
+
+
 def emulate_kernel_a(ii, plan, thresh):
     """Kernel A (csrc/detect.cu) in plain torch, tile by tile, driven by the
     packed plan alone as the kernel is: per tile of the plan's table the
