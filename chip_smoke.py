@@ -59,7 +59,45 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      written once) over the card's memory rate and its operations on this
      run's data over the card's float32 rate (kernel C's three TF32 products
      a score over the card's dense TF32 rate);
-  6. checks the reference stereo pair too, when the environment variable
+  6. drives the visual-odometry paths after the frontend's, each with its
+     launch counts reset before and read after it:
+     - `track`: Surf + track_pair (5-point RANSAC) on frames 0 and 1 of the
+       50-frame terrain orbit at 1280x960, stored in the fixture
+       golden_terrain_track.npz with the JAX run's draw (`raw`) and result;
+       launches A 2, B 2, C 1, D 0, keypoint counts equal, pose finite,
+       the good matches equal, the best score within 1 %, and the refits
+       and the pose from the JAX run's winning hypothesis at inliers within
+       2 %, rotation within 0.1 degree, t's direction within 1 degree.  On
+       this pair several candidates tie at the best score (every good
+       match an inlier) and the first wins, which rests on float32 rounding
+       (ROADMAP Queue 3, "RANSAC ties"), and the five-point candidates of an
+       ill-conditioned sample differ between the packages.  So each of the
+       fixture's 64 JAX draws is held to the JAX run where the answer is
+       defined: the port's best score lies within one point (a point at
+       the threshold) of JAX's on every draw, and the refits and the pose
+       from JAX's winning hypothesis give JAX's result at the tolerances
+       above on at least WINNER_AGREE draws; the whole track_pair, which
+       breaks the tie its own way, must have median inliers over the draws
+       within 2 % of JAX's.
+       Then `track_ms`: track_pair alone on the
+       card-resident keypoints, drawing from the port's own generator,
+       with its device operations and device us;
+     - `ba`: bench.py's 8-camera x 512-point problem (io.synth.ba_problem):
+       one lm_step at lambda = 1e-3 against golden_ba_step.npz at 1e-5 on
+       the state and 1e-4 relative on the cost, run_lm for 10 iterations at
+       1e-4; then `ba_step_ms`;
+     - `vo`: SlamPipeline over the 12-frame terrain orbit at 200x280 (the
+       JAX package's own VO run), plain, with ba_refine=True and with
+       window_ba=4, each at the seeds 0-7 of golden_terrain_vo.npz on the
+       JAX pipeline's own draws (its key stream, stored there), beside the
+       JAX runs.  About one draw in 30 lets a degenerate five-point
+       candidate win a pair, in either package; on the same draws the two
+       mostly track the same pairs.  Each run: at least VO_AGREE of the
+       draws within 2 % of JAX's inliers, at most VO_FAIL_RATE of the frames
+       at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
+       plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1 a frame
+       and C 1 a frame after the first; `vo_frame_ms` on the host clock;
+  7. checks the reference stereo pair too, when the environment variable
      SURF_REFERENCE_DATA names the directory that holds it.
 
 Every failure raises, and the exit code is then non-zero.  With no CUDA
@@ -71,6 +109,7 @@ device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -82,13 +121,22 @@ import time
 import numpy as np
 import torch
 
-from cuda_surf_tpu_torch import (BatchSurf, Surf, SurfConfig, _build,
-                                 detect_and_compute, detect_and_compute_batch,
-                                 match_keypoints)
+from cuda_surf_tpu_torch import (BatchSurf, Intrinsics, SlamPipeline, Surf,
+                                 SurfConfig, _build, detect_and_compute,
+                                 detect_and_compute_batch, match_keypoints,
+                                 track_pair)
+from cuda_surf_tpu_torch.ba import core as ba_core
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
-                                        ORADIUS, ORADIUS_SQ, ROTATED_CONFIG)
-from cuda_surf_tpu_torch.io import MAIN_PAIR, main_batch, read_pgm
+                                        ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
+                                        VO_CONFIG, VO_SEEDS)
+from cuda_surf_tpu_torch.io import (MAIN_PAIR, TERRAIN_TRACK, TERRAIN_VO,
+                                    main_batch, read_pgm,
+                                    render_terrain_sequence)
+from cuda_surf_tpu_torch.io.synth import ba_problem
+from cuda_surf_tpu_torch.geometry import epipolar
+from cuda_surf_tpu_torch.slam import ate_rmse
+from cuda_surf_tpu_torch.slam.tracking import track_inputs
 from cuda_surf_tpu_torch.ops import patch_wavelets
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
                                                 l2_normalize, sample_frame)
@@ -119,11 +167,29 @@ GOLDEN = {"main": "golden_plane_pair.npz",
           "rotated": "golden_plane_pair_rotated.npz",
           "doubled": "golden_plane_pair_doubled.npz",
           "doubled_rotated": "golden_plane_pair_doubled_rotated.npz",
-          "batch": "golden_plane_batch.npz"}
+          "batch": "golden_plane_batch.npz",
+          "track": "golden_terrain_track.npz",
+          "ba": "golden_ba_step.npz",
+          "vo": "golden_terrain_vo.npz"}
 WARMUP, RUNS = 10, 50
 SLOW = (1, 3)    # warm-up and timed runs of a twin that takes > 0.1 s
 GAP = 1e-5       # top-two orientation window gap below which either wins
 STEP_SDS = (4, 5, 6, 7, 8)
+TRACK_THRESH = 2e-5   # track_pair's inlier threshold (squared Sampson)
+# Over the track fixture's 64 JAX draws: the draws on which the refits and
+# the pose from JAX's winner must give JAX's result (where the cheirality
+# test ties, the first of the four poses wins, and their order is the SVD's
+# sign convention), and the distance at unit norm within which a port
+# candidate counts as JAX's winner (a reading, not a check).
+WINNER_AGREE = 60
+WINNER_DIST = 1e-3
+# The VO cell against the JAX runs on the same draws: the least share of
+# draws within 2 % of JAX's inliers; the most frames at <= 60 inliers, as
+# 1.5 x the JAX package's rate a draw on the cell's pairs (11 of 352,
+# tests/vo_draw_rates.py); and the most its median ATE may be over JAX's.
+VO_AGREE = 0.85
+VO_FAIL_RATE = 1.5 * 11 / 352
+VO_ATE_FACTOR = 1.5
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, the float32 rate outside the tensor cores, at which the integer
@@ -794,11 +860,17 @@ def reset_counts():
 
 
 def read_counts(name, expected):
-    """The launch counts since `reset_counts`; every kernel in `expected`
-    must have launched (exactly that often where a number is given) and no
-    other kernel at all."""
+    """The launch counts since `reset_counts`, held to `expected` by
+    check_launches."""
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in KERNELS.items()}
+    check_launches(name, counts, expected)
+    return counts
+
+
+def check_launches(name, counts, expected):
+    """Every kernel in `expected` must have launched (exactly that often
+    where a number is given) and no other kernel at all."""
     for k, n in expected.items():
         if counts[k] == 0 or (n is not None and counts[k] != n):
             raise AssertionError(f"{name} path: kernel {k} launched "
@@ -808,7 +880,6 @@ def read_counts(name, expected):
     if stray:
         raise AssertionError(f"kernels {stray} launched on the {name} path, "
                              "which does not run them")
-    return counts
 
 
 def check_descriptors(name, kp, d, cfg):
@@ -911,6 +982,266 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
         if not torch.equal(a, b):
             raise AssertionError("step-routed descriptors differ from the "
                                  "main path's")
+    return counts
+
+
+def pose_gap(n, R, t, n_ref, R_ref, t_ref) -> dict:
+    """A track result (inliers, R, t) beside a reference one: the angle of
+    R R_ref^T and the one between t and t_ref, in degrees."""
+    R, R_ref, t, t_ref = (np.asarray(a, np.float64)
+                          for a in (R, R_ref, t, t_ref))
+    cos_t = t @ t_ref / np.linalg.norm(t) / np.linalg.norm(t_ref)
+    return dict(inliers=int(n), rotation_deg=float(np.degrees(np.arccos(
+        np.clip((np.trace(R @ R_ref.T) - 1) / 2, -1, 1)))),
+        t_direction_deg=float(np.degrees(np.arccos(np.clip(cos_t, -1, 1)))))
+
+
+def same_track(gap, n_ref) -> bool:
+    """Inliers within 2 %, rotation within 0.1 degree, t within 1 degree."""
+    return (abs(gap["inliers"] - n_ref) <= 0.02 * n_ref
+            and gap["rotation_deg"] <= 0.1 and gap["t_direction_deg"] <= 1.0)
+
+
+def ransac_beside_jax(x1, x2, good, raw, E_j, win):
+    """The port's 5-point RANSAC (ransac_essential's stages) on `raw`
+    beside the JAX run's winner E_j, candidate `win` (sample x 20 + slot):
+    -> (the port's best score and how many candidates tie at it; the
+    distance of the nearest valid candidate of that sample to E_j, both at
+    unit norm, up to sign; the inlier count, R and t of the port's refits
+    and pose from its own winner, and from E_j)."""
+    sample = epipolar.sample_rows(good, raw)
+    Es, ok = epipolar.hypotheses(x1, x2, sample, "5pt")
+    scores = torch.where(ok, epipolar._sampson_inlier_counts(
+        Es, x1, x2, good, TRACK_THRESH), -1)
+    slots = slice(win // 20 * 20, win // 20 * 20 + 20)
+    unit = lambda E: E / torch.linalg.norm(E, dim=(-2, -1), keepdim=True)
+    E_j = torch.as_tensor(E_j).to(Es.device)
+    cand, ref = unit(Es[slots]), unit(E_j)
+    dist = torch.minimum((cand - ref).flatten(1).norm(dim=1),
+                         (cand + ref).flatten(1).norm(dim=1))
+    poses = []
+    for E0 in (Es[int(torch.argmax(scores))], E_j):
+        E, inl = epipolar.refit(E0, x1, x2, good, TRACK_THRESH)
+        R, t, _ = epipolar.recover_pose(E, x1, x2, inl)
+        poses.append((int(inl.sum()), R.cpu(), t.cpu()))
+    best = scores.max()
+    return (int(best), int((scores == best).sum()),
+            float(torch.where(ok[slots], dist, math.inf).min()), *poses)
+
+
+def run_track_path(card):
+    """Surf + track_pair on the terrain fixture's pair with the JAX run's
+    draw, counted; the 64 JAX draws of the fixture (the first is that
+    draw), each through JAX's winner and whole; then `track_ms` on the
+    port's own draws."""
+    g = np.load(os.path.join(DATA, GOLDEN["track"]))
+    if str(g["config"]) != repr(sorted(MAIN_CONFIG.items())) or \
+            str(g["cell"]) != repr(sorted(TERRAIN_TRACK.items())):
+        raise AssertionError("the track fixture is for another config or "
+                             "cell; rerun tests/make_torch_golden.py track")
+    intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
+    raw = torch.as_tensor(g["raw"]).cuda()
+    surf = Surf(SurfConfig(**MAIN_CONFIG), device="cuda")
+    reset_counts()
+    (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
+    res = track_pair(k1, d1, k2, d2, intr, raw=raw)
+    counts = read_counts("track", {"A": 2, "B": 2, "C": 1})
+    kp_counts = [int(k1.count), int(k2.count)]
+    if kp_counts != g["counts"].tolist():
+        raise AssertionError(f"track: keypoints {kp_counts}, JAX golden "
+                             f"{g['counts'].tolist()}")
+    if not (torch.isfinite(res.R).all() and torch.isfinite(res.t).all()
+            and torch.isfinite(res.points3d).all()):
+        raise AssertionError("track: non-finite pose or points")
+    n_j = int(g["n_inliers"])
+    against_jax = lambda n, R, t: pose_gap(n, R.cpu(), t.cpu(), n_j, g["R"],
+                                           g["t"])
+    whole = against_jax(res.n_inliers, res.R, res.t)
+    _, good, x1, x2 = track_inputs(k1, d1, k2, d2, intr)
+    n_good = int(good.sum())
+    if n_good != int(g["n_good"]):
+        raise AssertionError(f"track: {n_good} good matches, JAX "
+                             f"{int(g['n_good'])}")
+    # the 64 draws of the fixture.  7-20 candidates tie at the best score
+    # and the first of them wins, which float32 rounding decides (ROADMAP
+    # Queue 3, "RANSAC ties"), and the five-point candidates of an
+    # ill-conditioned sample differ between the packages.  So each draw is
+    # held to the JAX run where the answer is defined: the port's best
+    # score within one point of JAX's (a point at the threshold), and the
+    # refits and the pose from JAX's winner give JAX's result.  The port's
+    # own result, which breaks the tie its own way, is held to the JAX
+    # runs' median inliers.
+    sweep, held = [], []
+    for r, n, Rk, tk, Ek, wk, bk in zip(
+            g["raws"], g["keys_n"], g["keys_R"], g["keys_t"], g["keys_E"],
+            g["keys_win"], g["keys_best"]):
+        best_k, ties_k, dist, own, from_jax = ransac_beside_jax(
+            x1, x2, good, torch.as_tensor(r).cuda(), Ek, int(wk))
+        gap, gap_j = pose_gap(*own, n, Rk, tk), pose_gap(*from_jax, n, Rk, tk)
+        if not sweep:      # PRNGKey(0), the draw `raw` of the fixture
+            best, ties, from_winner = best_k, ties_k, gap_j
+            if not same_track(gap_j, n_j):
+                raise AssertionError(f"track: the refits from the JAX "
+                                     f"winner give {gap_j}, JAX {n_j}")
+        sweep.append((same_track(gap, int(n)), gap["inliers"],
+                      gap["rotation_deg"]))
+        held.append((best_k - int(bk), dist <= WINNER_DIST,
+                     same_track(gap_j, int(n))))
+    agree = sum(s[0] for s in sweep)
+    med_n, med_j = (float(np.median(a)) for a in (
+        [s[1] for s in sweep], g["keys_n"]))
+    kt = g["keys"]
+    draws = dict(draws=len(sweep),
+                 best_score_gaps=[h[0] for h in held if h[0]],
+                 jax_winner_among_candidates=sum(h[1] for h in held),
+                 refits_from_jax_winner_agree=sum(h[2] for h in held),
+                 agree=agree, cpu_agree=int((
+                     (np.abs(kt[:, 1] - kt[:, 2]) <= 0.02 * kt[:, 1])
+                     & (kt[:, 3] <= 0.1) & (kt[:, 4] <= 1.0)).sum()),
+                 median_inliers=med_n, jax_median_inliers=med_j,
+                 below_150=sum(s[1] < 150 for s in sweep),
+                 jax_below_150=int((g["keys_n"] < 150).sum()),
+                 rotation_gap_deg_quartiles=np.percentile(
+                     [s[2] for s in sweep], [25, 50, 75]).tolist())
+    emit(dict(phase="track_path", keypoints=kp_counts, good_matches=n_good,
+              golden_inliers=n_j, track_pair=whole, best_score=best,
+              golden_best_score=int(g["best_score"]), ties_at_best=ties,
+              golden_ties_at_best=int(g["ties"]),
+              refits_from_jax_winner=from_winner, jax_draws=draws,
+              launches=counts))
+    if max(abs(h[0]) for h in held) > 1 or \
+            draws["refits_from_jax_winner_agree"] < WINNER_AGREE or \
+            abs(med_n - med_j) > 0.02 * med_j:
+        raise AssertionError(f"track: over the JAX draws {draws}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    fn = lambda: track_pair(k1, d1, k2, d2, intr, gen)
+    ms, wall = time_ms(fn), time_wall_ms(fn)
+    ops, us = device_ops(fn)
+    emit(dict(metric="track_ms", value=ms, wall_ms=wall, device_ops=ops,
+              device_us=us, busy_share=None if us is None else us / 1e3 / ms,
+              what="track_pair (match, filter, 5-point RANSAC over 4096 "
+              "slots x 128 hypotheses, pose) on the terrain pair's "
+              "card-resident keypoints, the port's own draws", card=card))
+    return counts
+
+
+def run_ba_phase(card):
+    """One lm_step and run_lm on bench.py's BA problem against the JAX
+    fixture; then `ba_step_ms`."""
+    g = np.load(os.path.join(DATA, GOLDEN["ba"]))
+    (ci, uv, mask), (R, t, X) = ba_problem()
+    prob = ba_core.problem_from_numpy(ci, uv, mask, "cuda")
+    state = ba_core.state_from_numpy(R, t, X, "cuda")
+    C, lam = R.shape[0], float(g["lam"])
+    step = ba_core.lm_step(state, prob, lam, C)
+    worst = 0.0
+    for name, a in zip(("R", "t", "points"), step):
+        ref = g[name]
+        err = float(np.abs(a.cpu().numpy() - ref).max())
+        worst = max(worst, err / max(float(np.abs(ref).max()), 1e-30))
+        if not np.allclose(a.cpu().numpy(), ref, rtol=1e-5,
+                           atol=1e-5 * float(np.abs(ref).max())):
+            raise AssertionError(f"ba: lm_step's {name} off the JAX golden "
+                                 f"by {err}")
+    costs = dict(cost0=float(ba_core.cost(state, prob)),
+                 cost1=float(ba_core.cost(step, prob)),
+                 cost_lm10=float(ba_core.run_lm(state, prob, n_iters=10)[1]))
+    for k, v in costs.items():
+        if abs(v - float(g[k])) > 1e-4 * abs(float(g[k])):
+            raise AssertionError(f"ba: {k} {v}, JAX golden {float(g[k])}")
+    emit(dict(phase="ba", cameras=C, points=int(X.shape[0]),
+              max_rel_err_state=worst, **costs,
+              golden={k: float(g[k]) for k in costs}))
+    fn = lambda: ba_core.lm_step(state, prob, lam, C)
+    ms, wall = time_ms(fn), time_wall_ms(fn)
+    ops, us = device_ops(fn)
+    emit(dict(metric="ba_step_ms", value=ms, wall_ms=wall, device_ops=ops,
+              device_us=us, what=f"one lm_step, {C} cameras x "
+              f"{int(X.shape[0])} points", card=card))
+
+
+def vo_summary(ates, inliers, jax_ates, jax_inliers):
+    """One run's per-seed ATEs and (seeds, frames) inliers beside the JAX
+    runs' on the same draws -> the share of the draws (frames after the
+    first) whose inlier count lies within 2 % of JAX's, the frames at <= 60
+    inliers (a pair tracked on a degenerate candidate) in both, and the
+    median ATE over the seeds in both."""
+    inl = np.asarray(inliers)[:, 1:]
+    jax_inl = np.asarray(jax_inliers)[:, 1:]
+    return dict(agree=float((np.abs(inl - jax_inl) <= 0.02 * jax_inl).mean()),
+                failed_frames=int((inl <= 60).sum()),
+                jax_failed_frames=int((jax_inl <= 60).sum()),
+                frames=int(inl.size),
+                median_ate=float(np.median(ates)),
+                jax_median_ate=float(np.median(jax_ates)),
+                ate=[float(a) for a in ates],
+                jax_ate=[float(a) for a in jax_ates],
+                min_inliers=inl.min(1).tolist())
+
+
+def run_vo_path(card):
+    """SlamPipeline over the 12-frame terrain orbit, plain, ba_refine and
+    window_ba=4, each at the JAX fixture's seeds on the JAX pipeline's own
+    draws (its key stream, `raws`) and each run counted, beside the JAX
+    runs of golden_terrain_vo.npz.  -> the first plain run's counts."""
+    g = np.load(os.path.join(DATA, GOLDEN["vo"]))
+    frames, centres, intr = render_terrain_sequence(**TERRAIN_VO)
+    if hashlib.sha256(frames.tobytes()).hexdigest() != \
+            str(g["frames_sha256"]) or g["seeds"].tolist() != list(VO_SEEDS):
+        raise AssertionError("vo: the fixture is for other frames or seeds; "
+                             "rerun tests/make_torch_golden.py vo")
+    raws = torch.as_tensor(g["raws"]).cuda()
+    runs, counts, frame_ms = {}, None, []
+    for run, kw in (("plain", {}), ("ba_refine", dict(ba_refine=True)),
+                    ("window_ba", dict(window_ba=4))):
+        ates, inliers = [], []
+        for seed, seed_raws in zip(VO_SEEDS, raws):
+            pipe = SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
+                                seed=seed, device="cuda", **kw)
+            reset_counts()
+            for i, f in enumerate(frames):
+                before = {k: fn.launches for k, fn in KERNELS.items()}
+                t0 = time.perf_counter()
+                pipe.process(f, raw=seed_raws[i - 1] if i else None)
+                torch.cuda.synchronize()
+                if run == "plain" and i:
+                    frame_ms.append((time.perf_counter() - t0) * 1e3)
+                got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+                check_launches(f"vo {run} seed {seed} frame {i}", got,
+                               dict(A=1, B=1, **({"C": 1} if i else {})))
+            total = read_counts(f"vo {run}", {"A": len(frames),
+                                              "B": len(frames),
+                                              "C": len(frames) - 1})
+            counts = counts or total
+            traj = pipe.trajectory()
+            if not np.isfinite(traj).all():
+                raise AssertionError(f"vo {run} seed {seed}: non-finite "
+                                     "trajectory")
+            ates.append(ate_rmse(traj, centres))
+            inliers.append([fs.n_inliers for fs in pipe.frames])
+        r = runs[run] = vo_summary(ates, inliers, g[f"ate_{run}"],
+                                   g[f"inliers_{run}"])
+        if r["agree"] < VO_AGREE or \
+                r["failed_frames"] > VO_FAIL_RATE * r["frames"] or \
+                r["median_ate"] > VO_ATE_FACTOR * r["jax_median_ate"]:
+            raise AssertionError(f"vo {run}: against the JAX runs on the same "
+                                 f"draws {r}")
+    plain = runs["plain"]["median_ate"]
+    if plain >= 0.06:
+        raise AssertionError(f"vo: median ATE {plain} (plain), limit 0.06")
+    if runs["window_ba"]["median_ate"] >= 1.15 * plain:
+        raise AssertionError("vo: windowed BA's median ATE "
+                             f"{runs['window_ba']['median_ate']} >= "
+                             "plain x 1.15")
+    emit(dict(phase="vo_path", frames=len(frames), seeds=list(VO_SEEDS),
+              runs=runs, launches_per_frame=dict(
+                  first={"A": 1, "B": 1}, after={"A": 1, "B": 1, "C": 1}),
+              launches=counts))
+    emit(dict(metric="vo_frame_ms", value=statistics.median(frame_ms),
+              what="SlamPipeline.process, plain, one 200x280 frame of the "
+              "terrain orbit after the first, host clock, median over the "
+              "plain runs' frames", card=card))
     return counts
 
 
@@ -1059,6 +1390,9 @@ def main() -> int:
     emit(dict(metric="match_ms", value=time_ms(match),
               wall_ms=time_wall_ms(match), what="4096 x 4096 left->right "
               "match", card=card))
+    counts["track"] = run_track_path(card)
+    run_ba_phase(card)
+    counts["vo"] = run_vo_path(card)
     for k, r in res.items():
         emit(dict(metric=f"kernel_{k}_ms", value=r["ms"],
                   plain_ms=r["plain_ms"], **times(r), card=card))

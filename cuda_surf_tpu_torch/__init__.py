@@ -3,7 +3,10 @@
 The SURF frontend (detect, orientation, describe, match; upright or
 rotated, 64-d or extended 128-d, doubled or not; one frame or a batch of
 frames per call) on an NVIDIA H100, with hand-written CUDA kernels
-(csrc/) in place of the JAX package's Pallas kernels.  This package
+(csrc/) in place of the JAX package's Pallas kernels, and on top of it
+the visual-odometry path: two-view geometry (8-point and 5-point RANSAC),
+`track_pair`, Schur-complement bundle adjustment, the keyframe map and
+`SlamPipeline`.  This package
 imports torch and never jax; the JAX package beside it is the reference
 it is tested against.
 """
@@ -23,9 +26,14 @@ from .frontend import (Surf, detect_and_compute,  # noqa: E402
 from .parallel import BatchSurf  # noqa: E402
 from .ops.matcher import match_keypoints  # noqa: E402
 from .ops.orientation import assign_orientations  # noqa: E402
+from .io.synth import Intrinsics  # noqa: E402
+from .geometry import ransac_essential  # noqa: E402
+from .ba import BAProblem, BAState, run_lm  # noqa: E402
+from .slam import SlamPipeline, track_pair  # noqa: E402
 
 __all__ = [
     "SurfConfig", "Keypoints", "Matches", "Surf", "BatchSurf",
     "detect_and_compute", "detect_and_compute_batch", "match_keypoints", "assign_orientations",
-    "config_from_jax",
+    "config_from_jax", "Intrinsics", "ransac_essential", "BAProblem",
+    "BAState", "run_lm", "SlamPipeline", "track_pair",
 ]

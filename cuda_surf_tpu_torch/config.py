@@ -233,6 +233,14 @@ DOUBLED_CONFIG = dict(MAIN_CONFIG, doubled=True)
 DOUBLED_ROTATED_CONFIG = dict(ROTATED_CONFIG, doubled=True)
 # Frames per call of the batch path, as bench.py's frames-per-second metric.
 BATCH_FRAMES = 8
+# The visual-odometry cell's frontend: the JAX package's SLAM tests' config
+# (tests/test_slam_sequence.py, _pipe) on 200x280 frames.
+VO_CONFIG = dict(noctaves=3, thresh=2.0, max_pts=1024,
+                 candidates_per_octave=1024)
+# The RANSAC seeds of the JAX runs in golden_terrain_vo.npz: the cell's ATE
+# is a property of the draws as well as of the code (a degenerate five-point
+# candidate can win a pair), so the cell is read over several seeds.
+VO_SEEDS = tuple(range(8))
 
 
 @dataclasses.dataclass(frozen=True)

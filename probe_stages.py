@@ -43,8 +43,19 @@ median of 20 calls after 3), `ms` as above, `device_ops` and `device_us`
 from the profiler, and `sha`, a hash of the output's bytes, so that two
 builds of the kernels can be held against each other bit for bit.
 
+With --track it splits the visual-odometry path instead: `track_pair` on
+the terrain fixture's 1280x960 pair (cuda_surf_tpu_torch/data/
+golden_terrain_track.npz, card-resident keypoints at the main config) into
+match (kernel C and its glue), filter + normalise, sampling, the five-point
+solver (and its Durand-Kerner root step alone), the Sampson scoring of the
+4096 slots x 2560 candidates, the two refits, recover_pose and the whole
+call on the port's own draws; and one `lm_step` on bench.py's 8-camera x
+512-point problem into the Schur build, the solve, the rest, and the whole
+step, with `run_lm` for 10 iterations.
+
     python3 probe_stages.py [--runs 30] [--doubled]
     python3 probe_stages.py --kernels [--only A,C_d] [--tag NAME]
+    python3 probe_stages.py --track [--runs 30]
     python3 probe_stages.py --rates
 
 --rates builds and runs probe_rates.cu (beside this script) instead: the
@@ -59,15 +70,22 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from cuda_surf_tpu_torch import BatchSurf, SurfConfig, _build, match_keypoints
+from cuda_surf_tpu_torch.ba import core as ba_core
+from cuda_surf_tpu_torch.geometry import epipolar, fivepoint
+from cuda_surf_tpu_torch.io.synth import Intrinsics, ba_problem
+from cuda_surf_tpu_torch.slam.tracking import (filter_matches, track_inputs,
+                                               track_pair)
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
                                         ROTATED_CONFIG)
@@ -336,6 +354,75 @@ def kernel_table(imgs, runs, card, only, tag):
     report("C_pairs", lambda: fused_best2(d1, d2, v2))
 
 
+def track_stages():
+    """[(name, fn)] of track_pair on the terrain fixture's pair and of one
+    lm_step on bench.py's BA problem, each fn on fixed earlier outputs."""
+    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "cuda_surf_tpu_torch", "data",
+                             "golden_terrain_track.npz"))
+    intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
+    cfg = SurfConfig(**MAIN_CONFIG)
+    (k1, d1), (k2, d2) = [detect_and_compute(torch.as_tensor(f).cuda(), cfg)
+                          for f in g["frames"]]
+    raw = torch.as_tensor(g["raw"]).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    m, good, x1, x2 = track_inputs(k1, d1, k2, d2, intr)
+    sample = epipolar.sample_rows(good, raw)
+    Es, ok = epipolar.hypotheses(x1, x2, sample, "5pt")
+    scores = torch.where(ok, epipolar._sampson_inlier_counts(
+        Es, x1, x2, good, 2e-5), -1)
+    E_best = epipolar._take(Es, torch.argmax(scores))
+    E, inl = epipolar.refit(E_best, x1, x2, good, 2e-5)
+    det = torch.randn(128, 11, device="cuda")       # det B(z), 128 samples
+    normalise = lambda: [epipolar.normalize_with_intrinsics(
+        torch.stack(p, -1), *intr[:2], *intr[2:])
+        for p in ((k1.x, k1.y), (m.match_x, m.match_y))]
+    (ci, uv, mask), (R, t, X) = ba_problem()
+    prob = ba_core.problem_from_numpy(ci, uv, mask, "cuda")
+    state = ba_core.state_from_numpy(R, t, X, "cuda")
+    C = R.shape[0]
+    Sm, bv, *_ = ba_core._schur_system(state, prob, 1e-3, C)
+    return [
+        ("match (kernel C + glue)",
+         lambda: match_keypoints(k1, d1, k2, d2)),
+        ("filter + normalise",
+         lambda: (filter_matches(k1, k2, m), normalise())),
+        ("sampling", lambda: epipolar.sample_rows(good, raw)),
+        ("draw + sampling", lambda: epipolar.sample_rows(
+            good, epipolar.draw_raw(128, 5, "cuda", gen))),
+        ("five-point, 128 samples",
+         lambda: epipolar.hypotheses(x1, x2, sample, "5pt")),
+        ("  of it: Durand-Kerner roots", lambda: fivepoint._roots_dk(det)),
+        ("Sampson scoring, 4096 x 2560", lambda: epipolar._sampson_inlier_counts(
+            Es, x1, x2, good, 2e-5)),
+        ("winner + two refits",
+         lambda: epipolar.refit(E_best, x1, x2, good, 2e-5)),
+        ("recover_pose", lambda: epipolar.recover_pose(E, x1, x2, inl)),
+        ("track_pair, whole",
+         lambda: track_pair(k1, d1, k2, d2, intr, gen)),
+        ("BA: Schur build, 8 x 512",
+         lambda: ba_core._schur_system(state, prob, 1e-3, C)),
+        ("BA: solve 48 x 48", lambda: torch.linalg.solve_ex(Sm, bv[:, None])),
+        ("lm_step, whole", lambda: ba_core.lm_step(state, prob, 1e-3, C)),
+        ("run_lm, 10 iterations",
+         lambda: ba_core.run_lm(state, prob, n_iters=10)),
+    ]
+
+
+def track_table(card, runs):
+    rows = [probe("track", name, fn, runs, card, "track_pair, whole")
+            for name, fn in track_stages()]
+    print(f"\n{card}; CUDA events, median of {runs}; torch.profiler\n")
+    print("| Stage | ms | device ops | device µs |")
+    print("|---|---|---|---|")
+    for r in rows:
+        us = r["device_us"]
+        print(f"| {r['stage']} | {r['ms']:.3f} | {r['device_ops']} | "
+              + ("— |" if us is None else f"{us:.1f} |"))
+    return 0
+
+
 def instruction_rates(card) -> int:
     """Build probe_rates.cu with the kernel library's flags into a temporary
     directory, run it and print its lines, each with the card."""
@@ -364,6 +451,8 @@ def main() -> int:
                     help="run the instruction-rate loops instead")
     ap.add_argument("--doubled", action="store_true",
                     help="also the two doubled pair paths")
+    ap.add_argument("--track", action="store_true",
+                    help="the visual-odometry path's stages instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -373,6 +462,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     if args.rates:
         return instruction_rates(card)
+    if args.track:
+        return track_table(card, args.runs)
     imgs = torch.as_tensor(main_batch(BATCH_FRAMES)).cuda()
     if args.kernels:
         kernel_table(imgs, args.runs, card, args.only.split(","), args.tag)

@@ -23,9 +23,43 @@ choice where the gap is >= 1e-5, to one of the two below it), so the
 gaps are the JAX package's too.  The machine with the card has no JAX,
 so the fixtures are made here and committed.
 
-    python tests/make_torch_golden.py [pair] [doubled] [batch]
+The visual-odometry slice's fixtures:
 
-With no argument it writes all of them (a few minutes on a CPU).
+  - `track`, golden_terrain_track.npz: frames 0 and 1 of the 50-frame
+    terrain orbit at 1280x960 (io.synth.TERRAIN_TRACK, stored: they take
+    ~50 s to render), the JAX `Surf` keypoint counts at the main config,
+    the JAX `track_pair` (5-point RANSAC, PRNGKey(0)) R, t, inlier count
+    and inlier mask, the `raw` draw of that key, (128, 5), and the inside
+    of that RANSAC (the JAX functions that ransac_essential calls, run
+    apart): the winning hypothesis, its score and how many candidates tie
+    at it.  On this pair every good match is an inlier of several
+    candidates and the first of them wins; which one is first rests on
+    float32 rounding (ROADMAP Queue 3, "RANSAC ties").  So the fixture
+    also holds the draws of PRNGKey(0..63) (`raws`) with the JAX result of
+    each (`keys_n`, `keys_R`, `keys_t`), its winning hypothesis, that
+    hypothesis' index, sample x 20 + slot, and its score (`keys_E`,
+    `keys_win`, `keys_best`), and prints and stores as `keys`
+    the port's result on the CPU beside it: key, JAX inliers, port
+    inliers, degrees between their rotations and between their t, ties at
+    the best score;
+  - `ba`, golden_ba_step.npz: bench.py's 8-camera x 512-point problem
+    (io.synth.ba_problem): the state after one JAX `lm_step` at
+    lambda = 1e-3, the cost before and after it, and `run_lm`'s final cost
+    after 10 iterations;
+  - `vo`, golden_terrain_vo.npz: the JAX `SlamPipeline` over the 12-frame
+    terrain orbit at 200x280 (io.synth.TERRAIN_VO, the SLAM tests' config),
+    plain, with ba_refine=True and with window_ba=4, each at seeds 0..7
+    (VO_SEEDS): each run's ATE and per-frame inliers, the key stream of
+    each seed (`raws`, (seeds, frames - 1, 128, 5): the `raw` of each
+    frame's RANSAC), the port's runs on the CPU on those draws
+    (`port_ate_*`, `port_inliers_*`) and a hash of the frames (the card
+    renders them).  The seeds matter: one RANSAC draw in a few lets a
+    degenerate five-point candidate win a pair, and the JAX pipeline's
+    plain ATE ranges over 0.017-0.112 across these seeds.
+
+    python tests/make_torch_golden.py [pair] [doubled] [batch] [track] [ba] [vo]
+
+With no argument it writes all of them (several minutes on a CPU).
 """
 
 from __future__ import annotations
@@ -43,15 +77,24 @@ import numpy as np  # noqa: E402
 
 import torch  # noqa: E402
 
+import hashlib  # noqa: E402
+
 import cuda_surf_tpu as cst  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from cuda_surf_tpu.ba import core as jba  # noqa: E402
 from cuda_surf_tpu.frontend import detect_and_compute_batch  # noqa: E402
 from cuda_surf_tpu.ops.matcher import match_keypoints  # noqa: E402
+from cuda_surf_tpu.slam import SlamPipeline, run_sequence  # noqa: E402
+from cuda_surf_tpu.geometry import epipolar as jep  # noqa: E402
+from cuda_surf_tpu.geometry import fivepoint as jfp  # noqa: E402
+from cuda_surf_tpu.slam import track_pair  # noqa: E402
 from cuda_surf_tpu_torch.config import (  # noqa: E402
     BATCH_FRAMES, DOUBLED_CONFIG, DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
-    ROTATED_CONFIG, SurfConfig)
+    ROTATED_CONFIG, VO_CONFIG, VO_SEEDS, SurfConfig)
+import cuda_surf_tpu_torch as tst  # noqa: E402
 from cuda_surf_tpu_torch.io.synth import (  # noqa: E402
-    MAIN_PAIR, main_batch, main_pair)
+    MAIN_PAIR, TERRAIN_TRACK, TERRAIN_VO, ba_problem, main_batch, main_pair,
+    render_terrain_sequence)
 from cuda_surf_tpu_torch.ops.integral import integral_image  # noqa: E402
 from cuda_surf_tpu_torch.ops.orientation import (  # noqa: E402
     assign_orientations_plain, orientation_windows, top2_windows)
@@ -133,8 +176,197 @@ def write_batch(config: dict, n_frames: int, name: str) -> None:
           f"{[round(float(b), 6) for b in mean_best]}")
 
 
+TRACK_THRESH = 2e-5    # track_pair's inlier threshold
+TRACK_KEYS = 64        # the draws of PRNGKey(0..63), JAX beside the port
+
+
+def ransac_inside(x1, x2, valid, raw):
+    """ransac_essential's 5-point path (epipolar.py:207-270) from the JAX
+    functions it calls, on the draw `raw`: -> (winning hypothesis, its
+    index (sample x 20 + slot), its score, the number of candidates at
+    that score, inliers, R, t)."""
+    count = jnp.maximum(valid.sum(), 1)
+    cdf = jnp.cumsum(valid.astype(jnp.int32))
+    sample = jnp.searchsorted(cdf, (raw % count + 1).reshape(-1)).reshape(
+        raw.shape)
+    Es, ok = jfp.five_point(x1[sample], x2[sample], gn_iters=4)
+    Es, ok = Es.reshape(-1, 3, 3), ok.reshape(-1)
+    scores = jnp.where(ok, jep._sampson_inlier_counts(
+        Es, x1, x2, valid, TRACK_THRESH), -1)
+    best = jnp.argmax(scores)
+    E = jep.project_essential(Es[best])
+    inliers = (jep.sampson_error(E, x1, x2) < TRACK_THRESH) & valid
+    n_best = inliers.sum()
+    for _ in range(2):
+        E_new = jep.project_essential(
+            jep._eight_point(x1, x2, inliers.astype(x1.dtype)))
+        inl_new = (jep.sampson_error(E_new, x1, x2) < TRACK_THRESH) & valid
+        use = inl_new.sum() >= n_best
+        E = jnp.where(use, E_new, E)
+        inliers = jnp.where(use, inl_new, inliers)
+        n_best = jnp.maximum(inl_new.sum(), n_best)
+    R, t, _ = jep.recover_pose(E, x1, x2, inliers)
+    return (Es[best], best, scores[best], (scores == scores[best]).sum(),
+            inliers, R, t)
+
+
+def pose_gap(n_a, R_a, t_a, n_b, R_b, t_b):
+    """(relative inlier gap, rotation degrees, t-direction degrees)."""
+    R_a, R_b, t_a, t_b = (np.asarray(a, np.float64)
+                          for a in (R_a, R_b, t_a, t_b))
+    c = (np.trace(R_a @ R_b.T) - 1) / 2
+    ct = t_a @ t_b / (np.linalg.norm(t_a) * np.linalg.norm(t_b))
+    return (abs(int(n_a) - int(n_b)) / max(int(n_b), 1),
+            float(np.degrees(np.arccos(np.clip(c, -1, 1)))),
+            float(np.degrees(np.arccos(np.clip(ct, -1, 1)))))
+
+
+def write_track(name: str) -> None:
+    frames, _, intr = render_terrain_sequence(**TERRAIN_TRACK)
+    cfg = cst.SurfConfig(**MAIN_CONFIG, wavelet_method="gather",
+                         detect_backend="xla")
+    surf = cst.Surf(cfg)
+    (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in frames]
+    res = jax.jit(track_pair)(k1, d1, k2, d2, intr, jax.random.PRNGKey(0))
+    m = match_keypoints(k1, d1, k2, d2)
+    good = m.valid & (m.ambiguity < 0.95) & (k1.laplace == k2.laplace[m.index])
+    x1 = jep.normalize_with_intrinsics(jnp.stack([k1.x, k1.y], -1), *intr)
+    x2 = jep.normalize_with_intrinsics(jnp.stack([m.match_x, m.match_y], -1),
+                                       *intr)
+    inside = jax.jit(ransac_inside)
+    t = lambda a: torch.as_tensor(np.array(a))
+    raws, jax_out, keys = [], [], []
+    for k in range(TRACK_KEYS):
+        raw = jax.random.randint(jax.random.PRNGKey(k), (128, 5), 0,
+                                 jnp.iinfo(jnp.int32).max)
+        E_win, win_idx, score, ties, inl, R, t_ = inside(x1, x2, good, raw)
+        if k == 0:
+            win = (E_win, score, ties)
+            if int(inl.sum()) != int(res.n_inliers) or not np.allclose(
+                    np.asarray(R), np.asarray(res.R), atol=1e-6):
+                raise ValueError("the RANSAC run apart differs from "
+                                 "track_pair's")
+        port = tst.ransac_essential(t(x1), t(x2), t(good), n_hypotheses=128,
+                                    inlier_thresh=TRACK_THRESH, solver="5pt",
+                                    raw=t(raw))
+        gap = pose_gap(port.n_inliers, port.R.numpy(), port.t.numpy(),
+                       inl.sum(), R, t_)
+        raws.append(np.asarray(raw, np.int32))
+        jax_out.append((int(inl.sum()), np.asarray(R), np.asarray(t_),
+                        np.asarray(E_win), int(win_idx), int(score)))
+        keys.append((k, int(inl.sum()), int(port.n_inliers), gap[1], gap[2],
+                     int(ties)))
+        print(f"key {k}: JAX {keys[-1][1]} inliers, port {keys[-1][2]}; "
+              f"rotations {gap[1]:.3f} deg apart, t {gap[2]:.3f} deg; "
+              f"{int(ties)} candidates at the best score {int(score)}")
+    E_win, score, ties = win
+    out = dict(frames=frames, raw=raws[0], raws=np.stack(raws),
+               counts=np.array([int(k1.count), int(k2.count)], np.int32),
+               R=np.asarray(res.R), t=np.asarray(res.t),
+               n_inliers=np.int32(res.n_inliers),
+               inliers=np.asarray(res.inliers),
+               n_good=np.int32(good.sum()), E_win=np.asarray(E_win),
+               best_score=np.int32(score), ties=np.int32(ties),
+               keys_n=np.array([o[0] for o in jax_out], np.int32),
+               keys_R=np.stack([o[1] for o in jax_out]),
+               keys_t=np.stack([o[2] for o in jax_out]),
+               keys_E=np.stack([o[3] for o in jax_out]),
+               keys_win=np.array([o[4] for o in jax_out], np.int32),
+               keys_best=np.array([o[5] for o in jax_out], np.int32),
+               keys=np.array(keys, np.float64),
+               intrinsics=np.asarray(intr, np.float64),
+               config=np.array(repr(sorted(MAIN_CONFIG.items()))),
+               cell=np.array(repr(sorted(TERRAIN_TRACK.items()))))
+    path = os.path.join(DATA, name)
+    np.savez_compressed(path, **out)
+    kt = out["keys"]
+    agree = ((np.abs(kt[:, 1] - kt[:, 2]) <= 0.02 * kt[:, 1])
+             & (kt[:, 3] <= 0.1) & (kt[:, 4] <= 1.0))
+    print(f"of {TRACK_KEYS} draws the port on the CPU agrees with JAX (2 %, "
+          f"0.1 deg, 1 deg) on {int(agree.sum())}; final inliers below 150 "
+          f"of {int(out['n_good'])}: JAX {int((kt[:, 1] < 150).sum())}, port "
+          f"{int((kt[:, 2] < 150).sum())}; median rotation gap "
+          f"{np.median(kt[:, 3]):.3f} deg")
+    print(f"wrote {path}: counts {out['counts'].tolist()}, good matches "
+          f"{int(out['n_good'])}, inliers {int(out['n_inliers'])} at "
+          f"PRNGKey(0), best score {int(score)} shared by {int(ties)} "
+          f"candidates")
+
+
+def write_ba(name: str) -> None:
+    (ci, uv, mask), (R, t, X) = ba_problem()
+    prob = jba.BAProblem(jnp.asarray(ci), jnp.asarray(uv), jnp.asarray(mask))
+    state = jba.BAState(jnp.asarray(R), jnp.asarray(t), jnp.asarray(X))
+    C = R.shape[0]
+    step = jax.jit(lambda s, p: jba.lm_step(s, p, jnp.float32(1e-3), C))(
+        state, prob)
+    _, c10 = jax.jit(lambda s, p: jba.run_lm(s, p, n_iters=10))(state, prob)
+    out = dict(R=np.asarray(step.R), t=np.asarray(step.t),
+               points=np.asarray(step.points),
+               cost0=np.float32(jba.cost(state, prob)),
+               cost1=np.float32(jba.cost(step, prob)),
+               cost_lm10=np.float32(c10), lam=np.float32(1e-3))
+    path = os.path.join(DATA, name)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}: cost {out['cost0']} -> {out['cost1']}, run_lm "
+          f"{out['cost_lm10']}")
+
+
+def key_stream(seed: int, n_frames: int) -> np.ndarray:
+    """(n_frames - 1, 128, 5) int32: the `raw` of each frame after the
+    first, as the JAX pipeline draws it from PRNGKey(seed) (pipeline.py:90,
+    :138, epipolar.py:217)."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(n_frames - 1):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.randint(
+            sub, (128, 5), 0, jnp.iinfo(jnp.int32).max), np.int32))
+    return np.stack(out)
+
+
+def write_vo(name: str) -> None:
+    frames, centres, intr = render_terrain_sequence(**TERRAIN_VO)
+    cfg = cst.SurfConfig(**VO_CONFIG, wavelet_method="gather",
+                         detect_backend="xla")
+    raws = np.stack([key_stream(seed, len(frames)) for seed in VO_SEEDS])
+    out = dict(frames_sha256=np.array(hashlib.sha256(
+                   frames.tobytes()).hexdigest()),
+               seeds=np.asarray(VO_SEEDS, np.int32), raws=raws,
+               config=np.array(repr(sorted(VO_CONFIG.items()))),
+               cell=np.array(repr(sorted(TERRAIN_VO.items()))))
+    for run, kw in (("plain", {}), ("ba_refine", dict(ba_refine=True)),
+                    ("window_ba", dict(window_ba=4))):
+        ates, inliers, port_ates, port_inliers = [], [], [], []
+        for seed, seed_raws in zip(VO_SEEDS, raws):
+            res = run_sequence(SlamPipeline(cfg, intrinsics=intr, seed=seed,
+                                            **kw), frames, gt=centres)
+            ates.append(res.ate)
+            inliers.append(res.inliers)
+            # the port on the CPU, on the same draws
+            pipe = tst.SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
+                                    device="cpu", **kw)
+            for f, raw in zip(frames, [None, *seed_raws]):
+                pipe.process(f, raw=None if raw is None
+                             else torch.as_tensor(raw))
+            port_ates.append(tst.slam.evaluate.ate_rmse(pipe.trajectory(),
+                                                        centres))
+            port_inliers.append([fs.n_inliers for fs in pipe.frames])
+            print(f"{run}, seed {seed}: ATE {res.ate:.5f}, inliers "
+                  f"{res.inliers.tolist()}; the port on the CPU, same "
+                  f"draws: ATE {port_ates[-1]:.5f}, inliers "
+                  f"{port_inliers[-1]}", flush=True)
+        out[f"ate_{run}"] = np.asarray(ates, np.float64)
+        out[f"inliers_{run}"] = np.asarray(inliers, np.int32)
+        out[f"port_ate_{run}"] = np.asarray(port_ates, np.float64)
+        out[f"port_inliers_{run}"] = np.asarray(port_inliers, np.int32)
+    path = os.path.join(DATA, name)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}")
+
+
 def main() -> None:
-    what = set(sys.argv[1:]) or {"pair", "doubled", "batch"}
+    what = set(sys.argv[1:]) or {"pair", "doubled", "batch", "track", "ba",
+                                 "vo"}
     if "pair" in what:
         write(MAIN_CONFIG, "golden_plane_pair.npz")
         write(ROTATED_CONFIG, "golden_plane_pair_rotated.npz")
@@ -143,6 +375,12 @@ def main() -> None:
         write(DOUBLED_ROTATED_CONFIG, "golden_plane_pair_doubled_rotated.npz")
     if "batch" in what:
         write_batch(MAIN_CONFIG, BATCH_FRAMES, "golden_plane_batch.npz")
+    if "track" in what:
+        write_track("golden_terrain_track.npz")
+    if "ba" in what:
+        write_ba("golden_ba_step.npz")
+    if "vo" in what:
+        write_vo("golden_terrain_vo.npz")
 
 
 if __name__ == "__main__":
