@@ -97,7 +97,30 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
        plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1 a frame
        and C 1 a frame after the first; `vo_frame_ms` on the host clock;
-  7. checks the reference stereo pair too, when the environment variable
+  7. drives the SLAM backend, each phase with its launch counts reset
+     before and read after it:
+     - `posegraph`: the SE(3) circle graph of tests/test_posegraph.py at
+       n = 64 (8 loops, dense path) and n = 600 (30 loops, CG path) and
+       their Sim(3) counterparts (golden_posegraph.npz): `optimize` held to
+       the JAX result and cost curve (PG_TOL), a second run equal bit for
+       bit, no kernel launched; `posegraph_iter_ms` (one Gauss-Newton step,
+       CUDA events) with its device operations, CG rounds and host reads;
+     - `cli`: `python -m cuda_surf_tpu_torch.demo --iters 3` and
+       `python -m cuda_surf_tpu_torch.slam.demo --posegraph`, each a
+       process of its own, must exit 0; the frame loader's path (native or
+       Python) on PGM files;
+     - `loops`: SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO
+       cell's 12 frames at seeds 0-7 on the JAX pipeline's key stream and
+       the JAX detector's draw of every pair (golden_terrain_loops.npz):
+       launches A 1, B 1 a frame, C 1 a tracked pair plus 1 a verification;
+       the verified pairs JAX's; the verdicts JAX's wherever JAX's inliers
+       lie more than 10 % from 60; optimize_with_loops[_sim3] on JAX's own
+       frames, closures and depths at PG_TOL; per run the JAX test's ATE
+       bounds (SE(3) < max(1.5 x VO, 0.08), Sim(3) < max(3 x VO, 0.12)) and
+       the median SE(3) ATE <= 1.5 x JAX's; a run stopped after 6 frames
+       through run_sequence's checkpoint_dir and resumed equals the
+       continuous run bit for bit; `slam_loop_frame_ms`, `loop_query_ms`;
+  8. checks the reference stereo pair too, when the environment variable
      SURF_REFERENCE_DATA names the directory that holds it.
 
 Every failure raises, and the exit code is then non-zero.  With no CUDA
@@ -108,7 +131,9 @@ device it exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import ast
 import ctypes
+import dataclasses
 import hashlib
 import json
 import math
@@ -116,7 +141,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -131,11 +158,15 @@ from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
                                         VO_CONFIG, VO_SEEDS)
 from cuda_surf_tpu_torch.io import (MAIN_PAIR, TERRAIN_TRACK, TERRAIN_VO,
-                                    main_batch, read_pgm,
-                                    render_terrain_sequence)
+                                    main_batch, native, read_pgm,
+                                    render_plane_sequence,
+                                    render_terrain_sequence, write_pgm)
 from cuda_surf_tpu_torch.io.synth import ba_problem
 from cuda_surf_tpu_torch.geometry import epipolar
-from cuda_surf_tpu_torch.slam import ate_rmse
+from cuda_surf_tpu_torch.slam import (LoopClosure, ate_rmse,
+                                      optimize_with_loops,
+                                      optimize_with_loops_sim3, posegraph,
+                                      run_sequence, sim3graph)
 from cuda_surf_tpu_torch.slam.tracking import track_inputs
 from cuda_surf_tpu_torch.ops import patch_wavelets
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
@@ -1245,6 +1276,343 @@ def run_vo_path(card):
     return counts
 
 
+# The pose graphs against golden_posegraph.npz (the JAX optimize on the
+# CPU): R within 1e-4, t within 5e-5 x max |t|, s within 1e-5, each step's
+# cost within 1 % + 1e-6 x the first (the last steps sit at the rounding
+# floor); the CG path's rounds differ by a few where float32 rounding moves
+# the stop test.
+PG_TOL = dict(R=1e-4, t=5e-5, s=1e-5, cost_rtol=1e-2, cost_floor=1e-6)
+PG_CASES = ("se3_64", "se3_600", "sim3_64", "sim3_600")
+
+
+def posegraph_case(g, case):
+    """-> (module, graph on the card, solver, n_iters) of one fixture case."""
+    meta = ast.literal_eval(str(g[f"{case}_meta"]))
+    mod = sim3graph if case.startswith("sim3") else posegraph
+    fields = mod.Sim3Graph._fields if mod is sim3graph \
+        else mod.PoseGraph._fields
+    src = SimpleNamespace(**{k: g[f"{case}_in_{k}"] for k in fields})
+    return mod, mod.graph_from_numpy(src, "cuda"), meta["solver"], \
+        meta["n_iters"]
+
+
+def gn_step(mod, graph, solver, table, stats=None):
+    """One Gauss-Newton step's increment at the graph's state."""
+    n = graph.R.shape[0]
+    blocks = (mod._edge_blocks(graph, graph.s, graph.R, graph.t)
+              if mod is sim3graph else mod._edge_blocks(graph, graph.R,
+                                                        graph.t))
+    return posegraph.solve_step(graph, n, solver, 1e-6, max(8 * n, 200),
+                                None, None, blocks, table, stats)
+
+
+def run_posegraph_phase(card):
+    """The SE(3) and Sim(3) graphs of golden_posegraph.npz on the card:
+    each optimised twice (the same bits: no float atomics) and held to the
+    JAX result and cost curve; then `posegraph_iter_ms`, one Gauss-Newton
+    step at the input state, with its device operations, CG rounds and host
+    reads.  No kernel runs here."""
+    g = np.load(os.path.join(DATA, "golden_posegraph.npz"))
+    reset_counts()
+    cases = {}
+    for case in PG_CASES:
+        mod, graph, solver, n_iters = posegraph_case(g, case)
+        runs = []
+        for _ in range(2):
+            stats = {}
+            out, costs = mod.optimize(graph, n_iters=n_iters, solver=solver,
+                                      stats=stats)
+            torch.cuda.synchronize()
+            runs.append((out, costs, stats))
+        (out, costs, stats), (out2, costs2, _) = runs
+        same = all(torch.equal(a, b) for a, b in zip(out, out2)) and \
+            torch.equal(costs, costs2)
+        if not same:
+            raise AssertionError(f"posegraph {case}: a second run on the "
+                                 "card gave other bits")
+        err = {}
+        for k in ("s", "R", "t") if mod is sim3graph else ("R", "t"):
+            want = g[f"{case}_{k}"]
+            err[k] = float(np.abs(getattr(out, k).cpu().numpy() - want).max())
+            tol = PG_TOL[k] * (float(np.abs(want).max()) if k == "t" else 1)
+            if not err[k] <= tol:
+                raise AssertionError(f"posegraph {case}: {k} off JAX's by "
+                                     f"{err[k]} > {tol}")
+        cj = g[f"{case}_costs"]
+        cp = costs.cpu().numpy()
+        if not np.all(np.abs(cp - cj) <= PG_TOL["cost_rtol"] * np.abs(cj)
+                      + PG_TOL["cost_floor"] * cj[0]):
+            raise AssertionError(f"posegraph {case}: costs {cp.tolist()}, "
+                                 f"JAX {cj.tolist()}")
+        table = posegraph.segment_table(graph, graph.R.shape[0]) \
+            if solver == "cg" else None
+        step_stats = {}
+        gn_step(mod, graph, solver, table, step_stats)
+        fn = lambda: gn_step(mod, graph, solver, table)
+        runs_ms = (2, 5) if solver == "cg" else (WARMUP, RUNS)
+        ms, wall = time_ms(fn, *runs_ms), time_wall_ms(fn, *runs_ms)
+        ops, us = device_ops(fn)
+        cases[case] = dict(
+            nodes=int(graph.R.shape[0]), edges=int(graph.edge_i.shape[0]),
+            solver=solver, n_iters=n_iters, max_abs_err=err,
+            costs=cp.tolist(), jax_costs=cj.tolist(), second_run_equal=same,
+            cg_rounds=stats.get("cg_rounds"),
+            jax_cg_rounds=(g[f"rounds_{case}"].tolist()
+                           if solver == "cg" else None),
+            host_reads=stats.get("host_reads"))
+        emit(dict(metric="posegraph_iter_ms", case=case, value=ms,
+                  wall_ms=wall, device_ops=ops, device_us=us,
+                  cg_rounds=step_stats.get("cg_rounds", [0])[0],
+                  cg_chunk=posegraph.CG_CHUNK if solver == "cg" else None,
+                  host_reads=step_stats.get("host_reads", [0])[0],
+                  what=f"one Gauss-Newton step of {case} ({solver}) at its "
+                  "input state: edge blocks + solve", card=card))
+    counts = read_counts("posegraph", {})
+    emit(dict(phase="posegraph", cases=cases, tolerances=PG_TOL,
+              launches=counts))
+    return counts
+
+
+LOOP_MIN_INLIERS = 60      # LoopDetector's default, as the pipeline uses it
+
+
+def loop_graph_inputs(g, k):
+    """JAX's frames, closures and frame depths of the fixture's k-th seed."""
+    seed = int(g["seeds"][k])
+    frames = [SimpleNamespace(R=R, t=t)
+              for R, t in zip(g["frame_R"][k], g["frame_t"][k])]
+    sel = g["loop_meta"][:, 0] == seed
+    loops = [LoopClosure(i=int(i), j=int(j), R=R, t=t, n_inliers=int(n),
+                         med_depth=float(d), med_depth_j=float(dj))
+             for (_, i, j, n), R, t, d, dj in zip(
+                 g["loop_meta"][sel], g["loop_R"][sel], g["loop_t"][sel],
+                 g["loop_depth"][sel], g["loop_depth_j"][sel])]
+    return frames, loops, list(g["frame_depths"][k])
+
+
+def check_graphs_on_jax_inputs(g, k):
+    """optimize_with_loops and optimize_with_loops_sim3 on the card, fed
+    with the JAX run's own frames, closures and depths, against the JAX
+    outputs (tolerances PG_TOL; the cost within 1 % + 1e-9)."""
+    frames, loops, depths = loop_graph_inputs(g, k)
+    R, t, c = optimize_with_loops(frames, loops, frame_depths=depths,
+                                  device="cuda")
+    s3, R3, t3, _, c3 = optimize_with_loops_sim3(
+        frames, loops, depths, min_gap=int(g["min_gap"]), device="cuda")
+    got = dict(se3_R=R, se3_t=t, se3_cost=c, sim3_s=s3, sim3_R=R3,
+               sim3_t=t3, sim3_cost=c3)
+    err = {}
+    for name, a in got.items():
+        want = g[name][k]
+        err[name] = float(np.abs(np.asarray(a) - want).max())
+        kind = name.split("_")[1]
+        tol = (PG_TOL["cost_rtol"] * float(want) + 1e-9 if kind == "cost"
+               else PG_TOL[kind] * (float(np.abs(want).max())
+                                    if kind == "t" else 1))
+        if not err[name] <= tol:
+            raise AssertionError(f"loops seed {int(g['seeds'][k])}: {name} "
+                                 f"on JAX's inputs off by {err[name]} > {tol}")
+    return err
+
+
+def run_loops_phase(card):
+    """SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO cell's
+    12 frames at the loops fixture's seeds, on the JAX pipeline's key
+    stream and the JAX detector's draw of every pair, counted frame by
+    frame; the graphs on JAX's own inputs; the ATE bounds; then a run on
+    the port's own generator stopped after 6 frames through run_sequence's
+    checkpoint_dir and resumed, against the same run done in one go."""
+    g = np.load(os.path.join(DATA, "golden_terrain_loops.npz"))
+    vo = np.load(os.path.join(DATA, GOLDEN["vo"]))
+    frames, centres, intr = render_terrain_sequence(**TERRAIN_VO)
+    if hashlib.sha256(frames.tobytes()).hexdigest() != \
+            str(g["frames_sha256"]) or str(g["config"]) != \
+            repr(sorted(VO_CONFIG.items())):
+        raise AssertionError("loops: the fixture is for other frames or "
+                             "another config; rerun "
+                             "tests/make_torch_golden.py loops")
+    gap = int(g["min_gap"])
+    pair_raws = {(int(i), int(j)): torch.as_tensor(r).cuda()
+                 for (i, j), r in zip(g["loop_pairs"], g["loop_raws"])}
+    loop_raws = [{i: r for (i, j), r in pair_raws.items() if j == k}
+                 for k in range(len(frames))]
+    seeds = [int(s) for s in g["seeds"]]
+    vo_seeds = vo["seeds"].tolist()
+    rows, counts, frame_ms, query_ms = [], None, [], []
+    for k, seed in enumerate(seeds):
+        raws = torch.as_tensor(vo["raws"][vo_seeds.index(seed)]).cuda()
+        pipe = SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
+                            seed=seed, loop_detect=True, loop_min_gap=gap,
+                            device="cuda")
+        reset_counts()
+        for f, img in enumerate(frames):
+            before = {n: fn.launches for n, fn in KERNELS.items()}
+            n_ver = pipe._detector.n_verifications if f else 0
+            t0 = time.perf_counter()
+            pipe.process(img, raw=raws[f - 1] if f else None,
+                         loop_raws=loop_raws[f])
+            torch.cuda.synchronize()
+            if f:
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if f == 0:
+                query = pipe._detector.query
+
+                def timed(*a, query=query, det=pipe._detector, **kw):
+                    n0 = det.n_verifications
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    out = query(*a, **kw)
+                    torch.cuda.synchronize()
+                    query_ms.append(((time.perf_counter() - t1) * 1e3,
+                                     det.n_verifications - n0))
+                    return out
+
+                pipe._detector.query = timed
+            n_ver = pipe._detector.n_verifications - n_ver
+            got = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
+            check_launches(f"loops seed {seed} frame {f}", got,
+                           dict(A=1, B=1, **({"C": (1 if f else 0) + n_ver}
+                                             if f else {})))
+        det = pipe._detector
+        total = read_counts(f"loops seed {seed}", {
+            "A": len(frames), "B": len(frames),
+            "C": len(frames) - 1 + det.n_verifications})
+        counts = counts or total
+        jver = [tuple(int(x) for x in v[1:]) for v in g["ver"]
+                if v[0] == seed]
+        if [v[:2] for v in det.verified] != [v[:2] for v in jver]:
+            raise AssertionError(f"loops seed {seed}: verified pairs "
+                                 f"{det.verified}, JAX {jver}")
+        clear = lambda n: abs(n - LOOP_MIN_INLIERS) > 0.1 * LOOP_MIN_INLIERS
+        flips = [(v, w) for v, w in zip(det.verified, jver) if clear(w[2])
+                 and (v[2] >= LOOP_MIN_INLIERS) != (w[2] >= LOOP_MIN_INLIERS)]
+        if flips:
+            raise AssertionError(f"loops seed {seed}: verdicts differ from "
+                                 f"JAX's on {flips}")
+        traj = pipe.trajectory()
+        if not np.isfinite(traj).all():
+            raise AssertionError(f"loops seed {seed}: non-finite trajectory")
+        ate_vo = ate_rmse(traj, centres)
+        vo_frames = [dataclasses.replace(fs) for fs in pipe.frames]
+        c_se3 = pipe.optimize_posegraph()
+        ate_se3 = ate_rmse(pipe.trajectory(), centres)
+        pipe.frames = [dataclasses.replace(fs) for fs in vo_frames]
+        c_sim3 = pipe.optimize_sim3()
+        ate_sim3 = ate_rmse(pipe.trajectory(), centres)
+        if not (np.isfinite(c_se3) and np.isfinite(c_sim3)):
+            raise AssertionError(f"loops seed {seed}: non-finite graph cost")
+        if not ate_se3 < max(1.5 * ate_vo, 0.08) or \
+                not ate_sim3 < max(3.0 * ate_vo, 0.12):
+            raise AssertionError(f"loops seed {seed}: ATE VO {ate_vo}, SE3 "
+                                 f"{ate_se3}, Sim3 {ate_sim3}")
+        rows.append(dict(
+            seed=seed, verifications=len(det.verified),
+            inliers=[v[2] for v in det.verified],
+            jax_inliers=[v[2] for v in jver],
+            loops=[(lc.i, lc.j, lc.n_inliers) for lc in pipe.loops],
+            ate_vo=ate_vo, ate_se3=ate_se3, ate_sim3=ate_sim3,
+            jax_ate_vo=float(g["ate_vo"][k]),
+            jax_ate_se3=float(g["ate_se3"][k]),
+            jax_ate_sim3=float(g["ate_sim3"][k]),
+            graphs_on_jax_inputs_err=check_graphs_on_jax_inputs(g, k)))
+    ates = ("ate_vo", "ate_se3", "ate_sim3")
+    med = {m: float(np.median([r[m] for r in rows])) for m in ates}
+    jmed = {m: float(np.median(g[m])) for m in ates}
+    # seeds 0-3 alone, for the record: two of the four lose pair 4 -> 5 to
+    # a match at the ratio test's threshold in one package and not the
+    # other (ROADMAP Queue 3), so four seeds do not settle a median
+    med4 = {m: float(np.median([r[m] for r in rows[:4]])) for m in ates}
+    jmed4 = {m: float(np.median(g[m][:4])) for m in ates}
+    if med["ate_se3"] > 1.5 * jmed["ate_se3"]:
+        raise AssertionError(f"loops: median SE3 ATE {med['ate_se3']} > "
+                             f"1.5 x JAX's {jmed['ate_se3']}")
+    resume = run_loop_resume(frames, intr, gap)
+    q = [ms for ms, _ in query_ms]
+    q_ver = [ms for ms, n in query_ms if n]
+    emit(dict(phase="loops", frames=len(frames), seeds=seeds, min_gap=gap,
+              runs=rows, median=med, jax_median=jmed,
+              median_seeds_0_3=med4, jax_median_seeds_0_3=jmed4,
+              resume=resume,
+              launches_per_frame=dict(first={"A": 1, "B": 1}, after={
+                  "A": 1, "B": 1, "C": "1 + the frame's verifications"}),
+              launches=counts))
+    emit(dict(metric="slam_loop_frame_ms", value=statistics.median(frame_ms),
+              what="SlamPipeline.process with loop detection, one 200x280 "
+              "terrain frame after the first, host clock up to a "
+              "synchronise, median over the seeds' frames", card=card))
+    emit(dict(metric="loop_query_ms", value=statistics.median(q_ver),
+              all_queries_median=statistics.median(q),
+              verifications_per_query=float(np.mean(
+                  [len(r["inliers"]) for r in rows])) / (len(frames) - gap),
+              what="LoopDetector.query of a frame that verified at least one "
+              "candidate (upload, kernel C, RANSAC, one host read a "
+              "verification), host clock, median", card=card))
+    return counts
+
+
+def _loop_state(pipe):
+    return (pipe.trajectory().tobytes(), list(pipe.frame_depths),
+            [(lc.i, lc.j, lc.n_inliers, lc.R.tobytes(), lc.t.tobytes(),
+              lc.med_depth, lc.med_depth_j) for lc in pipe.loops])
+
+
+def run_loop_resume(frames, intr, gap, cut=6):
+    """The loop-detecting pipeline on the port's own generator (seed 0),
+    once in one go and once stopped after `cut` frames through
+    run_sequence's checkpoint_dir and resumed in a fresh pipeline: the
+    trajectory, loops and frame depths must be equal bit for bit."""
+    make = lambda: SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
+                                loop_detect=True, loop_min_gap=gap,
+                                device="cuda")
+    whole = make()
+    run_sequence(whole, frames)
+    with tempfile.TemporaryDirectory() as d:
+        run_sequence(make(), frames[:cut], checkpoint_dir=d,
+                     checkpoint_every=3)
+        resumed = make()
+        run_sequence(resumed, frames, checkpoint_dir=d, checkpoint_every=3)
+        saved = sorted(os.listdir(d))
+    if _loop_state(resumed) != _loop_state(whole):
+        raise AssertionError("loops: the resumed run differs from the "
+                             "continuous one")
+    return dict(cut=cut, checkpoints=saved, loops=len(whole.loops),
+                verifications=whole._detector.n_verifications,
+                equal_bit_for_bit=True)
+
+
+def run_cli_phase(card):
+    """The two demo CLIs as users start them, each a process of its own on
+    the card; and the image loader's path (native or Python) on PGM files."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, cmd in (
+                ("demo", ["-m", "cuda_surf_tpu_torch.demo", "--iters", "3",
+                          "--out-dir", d]),
+                ("slam_demo", ["-m", "cuda_surf_tpu_torch.slam.demo",
+                               "--posegraph"])):
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, *cmd], cwd=root,
+                               capture_output=True, text=True, timeout=300)
+            out[name] = dict(rc=p.returncode, seconds=time.perf_counter() - t0,
+                             tail=p.stdout.strip().splitlines()[-4:])
+            if p.returncode != 0:
+                raise AssertionError(f"cli {name}: exit {p.returncode}\n"
+                                     f"{p.stdout[-2000:]}{p.stderr[-2000:]}")
+        seq = render_plane_sequence(n_frames=3, h=96, w=128, seed=2)[0]
+        paths = []
+        for k, img in enumerate(seq):
+            paths.append(os.path.join(d, f"f{k}.pgm"))
+            write_pgm(paths[-1], img)
+        with native.FrameLoader(paths, depth=2) as fl:
+            loader = fl.path
+            if any(not np.array_equal(a, b) for a, b in zip(fl, seq)):
+                raise AssertionError(f"cli: the {loader} loader read other "
+                                     "pixels")
+    emit(dict(phase="cli", runs=out, loader=loader,
+              native_library=native.available(), card=card))
+
+
 def reference_pair(cfg):
     left = os.path.join(REFERENCE_DATA, "left.pgm")
     right = os.path.join(REFERENCE_DATA, "right.pgm")
@@ -1393,6 +1761,9 @@ def main() -> int:
     counts["track"] = run_track_path(card)
     run_ba_phase(card)
     counts["vo"] = run_vo_path(card)
+    counts["posegraph"] = run_posegraph_phase(card)
+    run_cli_phase(card)
+    counts["loops"] = run_loops_phase(card)
     for k, r in res.items():
         emit(dict(metric=f"kernel_{k}_ms", value=r["ms"],
                   plain_ms=r["plain_ms"], **times(r), card=card))

@@ -6,9 +6,12 @@ frames per call) on an NVIDIA H100, with hand-written CUDA kernels
 (csrc/) in place of the JAX package's Pallas kernels, and on top of it
 the visual-odometry path: two-view geometry (8-point and 5-point RANSAC),
 `track_pair`, Schur-complement bundle adjustment, the keyframe map and
-`SlamPipeline`.  This package
-imports torch and never jax; the JAX package beside it is the reference
-it is tested against.
+`SlamPipeline`, and the SLAM backend: loop closure, the SE(3) and Sim(3)
+pose graphs, checkpoint / resume, the sequence driver with its loaders,
+and the two demo CLIs (`python -m cuda_surf_tpu_torch.demo`,
+`python -m cuda_surf_tpu_torch.slam.demo`).  This package imports torch
+and never jax; the JAX package beside it is the reference it is tested
+against.
 """
 
 import torch

@@ -132,7 +132,7 @@ def _tile_table(shapes):
 
 @functools.lru_cache(maxsize=32)
 def pyramid_plan(cfg: SurfConfig, h: int, w: int, ih: int, iw: int,
-                 device: str = "cpu") -> PyramidPlan:
+                 device: str) -> PyramidPlan:
     """Kernel A's static plan for (h, w) frames whose integral images are
     (ih, iw): per-octave geometry (`octave_plan`, which raises if a layer
     would read outside the integral image), each layer's 32 corner offsets

@@ -5,11 +5,12 @@ Per frame: SURF features (kernels A and B on the card), frame-to-frame
 tracking (kernel C, then RANSAC on the essential matrix), optionally a
 two-view BA polish and a windowed BA over a keyframe map, then the
 median-depth-ratio scale chain and the pose accumulation on the host.
-The numerics run on the pipeline's device; the host reads the inlier
-count and the pair's geometry once a frame, where the reference does.
-
-Loop closure and the pose graphs are not ported yet: `loop_detect=True`,
-`optimize_posegraph` and `optimize_sim3` raise NotImplementedError.
+With `loop_detect=True` each frame is also registered with a loop
+detector and verified against earlier frames (kernel C and RANSAC again);
+`optimize_posegraph` and `optimize_sim3` close the loops with the SE(3) or
+the Sim(3) pose graph.  The numerics run on the pipeline's device; the host
+reads the inlier count and the pair's geometry once a frame, and once a
+loop verification, where the reference does.
 """
 
 from __future__ import annotations
@@ -26,11 +27,10 @@ from ..frontend import Surf, require_device
 from ..geometry.epipolar import normalize_with_intrinsics
 from ..io.synth import Intrinsics
 from ..utils.metrics import MetricsLogger
+from .loopclosure import LoopDetector, optimize_with_loops
 from .mapping import KeyframeMap
+from .sim3graph import optimize_with_loops_sim3
 from .tracking import default_intrinsics, track_pair
-
-_LOOPS_NOT_PORTED = ("loop closure and the pose graphs are not ported to "
-                     "the PyTorch package yet (ROADMAP item 14a)")
 
 
 def _np(a) -> np.ndarray:
@@ -77,7 +77,8 @@ class SlamPipeline:
     card and raises if there is none; `device="cpu"` runs the plain
     PyTorch versions.  RANSAC draws from one torch.Generator on the
     device, seeded with `seed`; `process(image, raw=...)` replaces a
-    frame's draw."""
+    frame's draw, and `process(image, loop_raws={i: raw})` the draws of the
+    loop verifications of pairs (i, this frame)."""
 
     def __init__(self, cfg: SurfConfig | None = None,
                  intrinsics: Intrinsics | None = None,
@@ -85,12 +86,11 @@ class SlamPipeline:
                  keyframe_min_inlier_frac: float = 0.5,
                  ba_refine: bool = False, ba_iters: int = 5,
                  window_ba: int = 0, loop_detect: bool = False,
+                 loop_min_gap: int = 5, loop_store: int | None = None,
                  seed: int = 0, metrics: MetricsLogger | None = None,
                  device="cuda"):
-        if loop_detect:
-            raise NotImplementedError(f"SlamPipeline(loop_detect=True): "
-                                      f"{_LOOPS_NOT_PORTED}")
         self.device = require_device(device, "SlamPipeline")
+        self.seed = seed
         self.cfg = cfg if cfg is not None else SurfConfig(
             max_pts=2048, candidates_per_octave=2048)
         self.surf = Surf(self.cfg, device=self.device)
@@ -102,7 +102,14 @@ class SlamPipeline:
         self.ba_iters = ba_iters
         self.window_ba = window_ba
         self.map = None
+        self.loop_detect = loop_detect
+        self.loop_min_gap = loop_min_gap
+        # bound on frames keeping full loop-verification features (host
+        # memory and checkpoint size; see LoopDetector.max_store)
+        self.loop_store = loop_store
+        self.loops = []
         self.frame_depths = []
+        self._detector = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.metrics = metrics or MetricsLogger()
@@ -117,13 +124,17 @@ class SlamPipeline:
         self._prev = None
         self._prev_depth = None
         self._prev_kp_depth = None
+        self.loops = []
         self.frame_depths = []
         self.map = None
+        self._detector = None
 
-    def process(self, image, raw: torch.Tensor | None = None) -> FrameState:
+    def process(self, image, raw: torch.Tensor | None = None,
+                loop_raws: dict | None = None) -> FrameState:
         """One frame, uint8 (H, W).  `raw` replaces this frame's RANSAC
         draw (see geometry.epipolar.ransac_essential); the first frame
-        draws nothing."""
+        draws nothing.  `loop_raws` maps an earlier frame i to the draw of
+        the loop verification of (i, this frame)."""
         h, w = image.shape
         if self.intr is None:
             self.intr = default_intrinsics(h, w)
@@ -136,6 +147,12 @@ class SlamPipeline:
                 self.map = KeyframeMap(self.intr, window=self.window_ba,
                                        device=self.device)
                 self.map.add_keyframe(kps, st.R, st.t)
+            if self.loop_detect:
+                self._detector = LoopDetector(self.intr,
+                                              min_gap=self.loop_min_gap,
+                                              max_store=self.loop_store,
+                                              device=self.device)
+                self._detector.add(kps, desc)
             self.frame_depths.append(1.0)
             self.metrics.log(frame=0, keypoints=int(kps.count), inliers=0)
             return st
@@ -211,9 +228,13 @@ class SlamPipeline:
                         self.frames[kf.index], R=kf.R, t=kf.t)
                 st = self.frames[-1]
         self.frame_depths.append(self._prev_depth or 1.0)
+        if self._detector is not None:
+            self._detector.add(kps, desc)
+            self.loops.extend(self._detector.query(raws=loop_raws))
         self._prev = (kps, desc)
         self.metrics.log(frame=st.index, keypoints=int(kps.count),
-                         inliers=n_inl, keyframe=is_kf, loops=0)
+                         inliers=n_inl, keyframe=is_kf,
+                         loops=len(self.loops))
         return st
 
     def trajectory(self) -> np.ndarray:
@@ -221,7 +242,32 @@ class SlamPipeline:
         return np.stack([-f.R.T @ f.t for f in self.frames])
 
     def optimize_posegraph(self, n_iters: int = 10) -> float:
-        raise NotImplementedError(f"optimize_posegraph: {_LOOPS_NOT_PORTED}")
+        """Global pose-graph smoothing over the whole trajectory: one SE(3)
+        node a frame, chain edges from the recorded consecutive relative
+        poses plus the detected loop-closure edges.  Returns the final
+        summed edge residual."""
+        if len(self.frames) < 3:
+            return 0.0
+        Ro, to, cost = optimize_with_loops(self.frames, self.loops,
+                                           n_iters=n_iters,
+                                           frame_depths=self.frame_depths,
+                                           device=self.device)
+        for i, f in enumerate(self.frames):
+            self.frames[i] = dataclasses.replace(f, R=Ro[i], t=to[i])
+        return cost
 
     def optimize_sim3(self, n_iters: int = 12) -> float:
-        raise NotImplementedError(f"optimize_sim3: {_LOOPS_NOT_PORTED}")
+        """Scale-drift-aware Sim(3) pose graph over the trajectory: loop
+        edges carry the measured relative scale, so accumulated scale drift
+        is spread around the cycle.  The scale is baked into the
+        translations (t <- t / s, keeping the camera centres in one global
+        scale).  Returns the final summed residual."""
+        if len(self.frames) < 3 or not self.loops:
+            return 0.0
+        s, Ro, to, _, cost = optimize_with_loops_sim3(
+            self.frames, self.loops, self.frame_depths, n_iters=n_iters,
+            min_gap=self.loop_min_gap, device=self.device)
+        for i, f in enumerate(self.frames):
+            self.frames[i] = dataclasses.replace(
+                f, R=Ro[i], t=to[i] / max(float(s[i]), 1e-12))
+        return cost

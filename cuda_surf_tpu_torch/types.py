@@ -52,9 +52,12 @@ _KP_DTYPES = dict(x=torch.float32, y=torch.float32, scale=torch.float32,
                   count=torch.int32)
 
 
-def keypoints_from_numpy(src, device="cpu") -> Keypoints:
+def keypoints_from_numpy(src, device="cuda") -> Keypoints:
     """Build :class:`Keypoints` from any object (or dict) carrying the
-    fields as arrays, e.g. the JAX package's keypoints after `np.asarray`."""
+    fields as arrays, e.g. the JAX package's keypoints after `np.asarray`;
+    on the card unless `device="cpu"`."""
+    from .frontend import require_device
+    device = require_device(device, "keypoints_from_numpy")
     get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
     return Keypoints(**{
         k: torch.as_tensor(np.asarray(get(k)), dtype=dt, device=device)

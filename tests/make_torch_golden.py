@@ -57,7 +57,31 @@ The visual-odometry slice's fixtures:
     degenerate five-point candidate win a pair, and the JAX pipeline's
     plain ATE ranges over 0.017-0.112 across these seeds.
 
+The SLAM backend's fixtures:
+
+  - `posegraph`, golden_posegraph.npz: four graphs, each with its inputs
+    and the JAX `optimize` result (R, t, s for Sim(3), the cost of each
+    step): the SE(3) circle graph of tests/test_posegraph.py at n = 64
+    with 8 loops (`default_rng(3)`, dense path, 10 steps) and at n = 600
+    with 30 loops (`default_rng(7)`, CG path, 5 steps: test_large_graph_cg's
+    graph), and the Sim(3) circle (`_sim3_circle`) at the same sizes
+    (`default_rng(3)` / `(7)`, every node but the gauge perturbed in scale,
+    rotation and translation; dense 12 steps, CG 8 steps).  For the CG cases
+    also the CG rounds of each step (`rounds_*`), counted by a re-run of the
+    same steps outside the jitted scan with `lax.while_loop` wrapped;
+  - `loops`, golden_terrain_loops.npz: the JAX `SlamPipeline(loop_detect=
+    True, loop_min_gap=6)` over the VO cell's 12 frames at the VO cell's
+    seeds 0-7 (LOOP_SEEDS) on golden_terrain_vo.npz's key stream, with the
+    loop detector's draws of every pair (i, j >= i + 6) (`loop_pairs`,
+    `loop_raws`: `randint(fold_in(PRNGKey(1), i * 100003 + j))`); per seed
+    the verified pairs in order with their inliers (`ver`: seed, i, j,
+    inliers), the closures, the frames, `frame_depths`, the outputs of
+    `optimize_with_loops` and `optimize_with_loops_sim3` on them, and the
+    ATE of the VO trajectory and after each graph; beside them the port's
+    run on the CPU on the same draws (`port_*`).
+
     python tests/make_torch_golden.py [pair] [doubled] [batch] [track] [ba] [vo]
+                                      [posegraph] [loops]
 
 With no argument it writes all of them (several minutes on a CPU).
 """
@@ -98,7 +122,8 @@ from cuda_surf_tpu_torch.io.synth import (  # noqa: E402
 from cuda_surf_tpu_torch.ops.integral import integral_image  # noqa: E402
 from cuda_surf_tpu_torch.ops.orientation import (  # noqa: E402
     assign_orientations_plain, orientation_windows, top2_windows)
-from torch_parity import check_orientations  # noqa: E402
+from torch_parity import (check_orientations,  # noqa: E402
+                          record_jax_verifications)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "cuda_surf_tpu_torch", "data")
@@ -364,9 +389,219 @@ def write_vo(name: str) -> None:
     print(f"wrote {path}")
 
 
+POSEGRAPH_CASES = (("se3_64", 64, 8, 3, "dense", 10),
+                   ("se3_600", 600, 30, 7, "cg", 5),
+                   ("sim3_64", 64, 8, 3, "dense", 12),
+                   ("sim3_600", 600, 30, 7, "cg", 8))
+
+
+def sim3_perturbed(n, n_loops, seed):
+    """tests/test_posegraph.py's exact Sim(3) circle, every node but the
+    gauge perturbed: scale by exp(N(0, 0.1)), rotation by exp(N(0, 0.02)),
+    translation by N(0, 0.1)."""
+    from test_posegraph import _sim3_circle
+    from cuda_surf_tpu.geometry.pose import exp_so3
+    rng = np.random.default_rng(seed)
+    g, Rs, ts, ss = _sim3_circle(n, n_loops, rng)
+    ps = np.ones(n)
+    ps[1:] = np.exp(rng.normal(0, 0.1, n - 1))
+    dR = np.asarray(exp_so3(jnp.asarray(np.concatenate(
+        [np.zeros((1, 3)), rng.normal(0, 0.02, (n - 1, 3))]), jnp.float32)))
+    dt = np.concatenate([np.zeros((1, 3)), rng.normal(0, 0.1, (n - 1, 3))])
+    return g._replace(s=jnp.asarray(ss * ps, jnp.float32),
+                      R=jnp.asarray(np.einsum("nij,njk->nik", dR, Rs),
+                                    jnp.float32),
+                      t=jnp.asarray(ts + dt, jnp.float32))
+
+
+def cg_rounds(graph, n_iters, sim3):
+    """The CG rounds of each Gauss-Newton step of the JAX `optimize` (CG
+    path), from a re-run of its steps outside the jitted scan with
+    lax.while_loop wrapped to read the round count it ends at."""
+    from cuda_surf_tpu.slam import posegraph as jpg, sim3graph as js3
+    rounds, orig = [], jax.lax.while_loop
+
+    def counted(cond, body, init):
+        out = orig(cond, body, init)
+        rounds.append(int(out[0]))
+        return out
+
+    n = graph.R.shape[0]
+    s, R, t = (graph.s if sim3 else None), graph.R, graph.t
+    jax.lax.while_loop = counted
+    try:
+        for _ in range(n_iters):
+            blk = (js3._edge_blocks(graph, s, R, t) if sim3
+                   else jpg._edge_blocks(graph, R, t))[1:]
+            dx = jpg._solve_cg(graph, n, 1e-6, *blk, max(8 * n, 200))
+            R = jpg.exp_so3(dx[:, :3]) @ R
+            t = t + dx[:, 3:6]
+            if sim3:
+                s = s * jnp.exp(dx[:, 6])
+    finally:
+        jax.lax.while_loop = orig
+    return np.asarray(rounds, np.int32)
+
+
+def write_posegraph(name: str) -> None:
+    from test_posegraph import _circle_graph
+    from cuda_surf_tpu.slam import posegraph as jpg, sim3graph as js3
+    out = {}
+    for case, n, n_loops, seed, solver, n_iters in POSEGRAPH_CASES:
+        sim3 = case.startswith("sim3")
+        g = (sim3_perturbed(n, n_loops, seed) if sim3 else
+             _circle_graph(n, n_loops, np.random.default_rng(seed))[0])
+        opt = js3.optimize if sim3 else jpg.optimize
+        go, costs = jax.jit(lambda g: opt(g, n_iters=n_iters,
+                                          solver=solver))(g)
+        for k, v in g._asdict().items():
+            out[f"{case}_in_{k}"] = np.asarray(v)
+        for k in ("s", "R", "t") if sim3 else ("R", "t"):
+            out[f"{case}_{k}"] = np.asarray(getattr(go, k))
+        out[f"{case}_costs"] = np.asarray(costs)
+        out[f"{case}_meta"] = np.array(repr(dict(solver=solver,
+                                                  n_iters=n_iters)))
+        if solver == "cg":
+            out[f"rounds_{case}"] = cg_rounds(g, n_iters, sim3)
+        print(f"{case}: costs {np.asarray(costs)}"
+              + (f", CG rounds {out[f'rounds_{case}'].tolist()}"
+                 if solver == "cg" else ""), flush=True)
+    path = os.path.join(DATA, name)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}")
+
+
+LOOP_SEEDS = VO_SEEDS
+LOOP_MIN_GAP = 6
+
+
+def loop_raws(n_frames: int, min_gap: int):
+    """The JAX loop detector's draw of every pair (i, j >= i + min_gap):
+    randint(fold_in(PRNGKey(1), i * 100003 + j), (128, 5))
+    (loopclosure.py:83, :137; epipolar.py:217)."""
+    key = jax.random.PRNGKey(1)
+    pairs = [(i, j) for j in range(n_frames) for i in range(j - min_gap + 1)]
+    raws = [np.asarray(jax.random.randint(
+        jax.random.fold_in(key, i * 100003 + j), (128, 5), 0,
+        jnp.iinfo(jnp.int32).max), np.int32) for i, j in pairs]
+    return np.asarray(pairs, np.int32).reshape(-1, 2), np.stack(raws)
+
+
+def _closures(seed, loops):
+    return (np.asarray([[seed, lc.i, lc.j, lc.n_inliers] for lc in loops],
+                       np.int64).reshape(-1, 4),
+            [np.asarray(lc.R, np.float64) for lc in loops],
+            [np.asarray(lc.t, np.float64) for lc in loops],
+            [lc.med_depth for lc in loops], [lc.med_depth_j for lc in loops])
+
+
+def write_loops(name: str) -> None:
+    import dataclasses
+    from cuda_surf_tpu.slam.loopclosure import optimize_with_loops
+    from cuda_surf_tpu.slam.sim3graph import optimize_with_loops_sim3
+    from cuda_surf_tpu.slam import ate_rmse
+    frames, centres, intr = render_terrain_sequence(**TERRAIN_VO)
+    vo = np.load(os.path.join(DATA, "golden_terrain_vo.npz"))
+    if str(vo["frames_sha256"]) != hashlib.sha256(
+            frames.tobytes()).hexdigest():
+        raise AssertionError("golden_terrain_vo.npz is for other frames")
+    pairs, lraws = loop_raws(len(frames), LOOP_MIN_GAP)
+    cfg = cst.SurfConfig(**VO_CONFIG, wavelet_method="gather",
+                         detect_backend="xla")
+    rec = {k: [] for k in ("ver", "loop_meta", "loop_R", "loop_t",
+                           "loop_depth", "loop_depth_j", "frame_R",
+                           "frame_t", "frame_depths", "inliers", "ate_vo",
+                           "se3_R", "se3_t", "se3_cost", "ate_se3",
+                           "sim3_s", "sim3_R", "sim3_t", "sim3_cost",
+                           "ate_sim3", "port_ver", "port_loops",
+                           "port_ate_vo", "port_ate_se3", "port_ate_sim3")}
+    for seed in LOOP_SEEDS:
+        pipe = SlamPipeline(cfg, intrinsics=intr, seed=seed,
+                            loop_detect=True, loop_min_gap=LOOP_MIN_GAP)
+        pipe.process(frames[0])
+        record_jax_verifications(pipe._detector, rec["ver"], (seed,))
+        for f in frames[1:]:
+            pipe.process(f)
+        ate_vo = ate_rmse(pipe.trajectory(), centres)
+        meta, Rl, tl, dl, djl = _closures(seed, pipe.loops)
+        rec["loop_meta"].append(meta)
+        rec["loop_R"] += Rl
+        rec["loop_t"] += tl
+        rec["loop_depth"] += dl
+        rec["loop_depth_j"] += djl
+        rec["frame_R"].append(np.stack([f.R for f in pipe.frames]))
+        rec["frame_t"].append(np.stack([f.t for f in pipe.frames]))
+        rec["frame_depths"].append(np.asarray(pipe.frame_depths))
+        rec["inliers"].append([f.n_inliers for f in pipe.frames])
+        rec["ate_vo"].append(ate_vo)
+        Ro, to, cost = optimize_with_loops(pipe.frames, pipe.loops,
+                                           frame_depths=pipe.frame_depths)
+        rec["se3_R"].append(Ro)
+        rec["se3_t"].append(to)
+        rec["se3_cost"].append(cost)
+        s3, R3, t3, _, c3 = optimize_with_loops_sim3(
+            pipe.frames, pipe.loops, pipe.frame_depths,
+            min_gap=LOOP_MIN_GAP)
+        rec["sim3_s"].append(s3)
+        rec["sim3_R"].append(R3)
+        rec["sim3_t"].append(t3)
+        rec["sim3_cost"].append(c3)
+        vo_frames = [dataclasses.replace(f) for f in pipe.frames]
+        pipe.optimize_posegraph()
+        rec["ate_se3"].append(ate_rmse(pipe.trajectory(), centres))
+        pipe.frames = [dataclasses.replace(f) for f in vo_frames]
+        pipe.optimize_sim3()
+        rec["ate_sim3"].append(ate_rmse(pipe.trajectory(), centres))
+        # the port on the CPU, on the same draws
+        port = tst.SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
+                                loop_detect=True, loop_min_gap=LOOP_MIN_GAP,
+                                device="cpu")
+        seed_raws = vo["raws"][seed]
+        for k, f in enumerate(frames):
+            port.process(f, raw=None if k == 0 else torch.as_tensor(
+                seed_raws[k - 1]), loop_raws={
+                    int(i): torch.as_tensor(r)
+                    for (i, j), r in zip(pairs, lraws) if j == k})
+        rec["port_ver"] += [[seed, *v] for v in port._detector.verified]
+        rec["port_loops"].append(len(port.loops))
+        rec["port_ate_vo"].append(tst.slam.ate_rmse(port.trajectory(),
+                                                    centres))
+        port_vo = [dataclasses.replace(f) for f in port.frames]
+        port.optimize_posegraph()
+        rec["port_ate_se3"].append(tst.slam.ate_rmse(port.trajectory(),
+                                                     centres))
+        port.frames = port_vo
+        port.optimize_sim3()
+        rec["port_ate_sim3"].append(tst.slam.ate_rmse(port.trajectory(),
+                                                      centres))
+        print(f"seed {seed}: JAX verifications "
+              f"{[v[1:] for v in rec['ver'] if v[0] == seed]}, loops "
+              f"{len(pipe.loops)}, ATE VO {ate_vo:.5f} SE3 "
+              f"{rec['ate_se3'][-1]:.5f} Sim3 {rec['ate_sim3'][-1]:.5f}; "
+              f"the port on the CPU, same draws: verifications "
+              f"{[v[1:] for v in rec['port_ver'] if v[0] == seed]}, loops "
+              f"{len(port.loops)}, ATE VO {rec['port_ate_vo'][-1]:.5f} SE3 "
+              f"{rec['port_ate_se3'][-1]:.5f} Sim3 "
+              f"{rec['port_ate_sim3'][-1]:.5f}", flush=True)
+    out = dict(frames_sha256=np.array(hashlib.sha256(
+                   frames.tobytes()).hexdigest()),
+               seeds=np.asarray(LOOP_SEEDS, np.int32),
+               min_gap=np.int32(LOOP_MIN_GAP), loop_pairs=pairs,
+               loop_raws=lraws,
+               config=np.array(repr(sorted(VO_CONFIG.items()))),
+               cell=np.array(repr(sorted(TERRAIN_VO.items()))))
+    for k, v in rec.items():
+        if k == "loop_meta":
+            v = np.concatenate(v)
+        out[k] = np.asarray(v)
+    path = os.path.join(DATA, name)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path}")
+
+
 def main() -> None:
     what = set(sys.argv[1:]) or {"pair", "doubled", "batch", "track", "ba",
-                                 "vo"}
+                                 "vo", "posegraph", "loops"}
     if "pair" in what:
         write(MAIN_CONFIG, "golden_plane_pair.npz")
         write(ROTATED_CONFIG, "golden_plane_pair_rotated.npz")
@@ -381,6 +616,10 @@ def main() -> None:
         write_ba("golden_ba_step.npz")
     if "vo" in what:
         write_vo("golden_terrain_vo.npz")
+    if "posegraph" in what:
+        write_posegraph("golden_posegraph.npz")
+    if "loops" in what:
+        write_loops("golden_terrain_loops.npz")
 
 
 if __name__ == "__main__":

@@ -40,8 +40,8 @@ def test_batchsurf_match_equals_jax_batchsurf_match():
     mj = JaxBatchSurf(jst.SurfConfig()).match(jk(k1), jnp.asarray(d1),
                                               jk(k2), jnp.asarray(d2))
     mt = cst.BatchSurf(cst.SurfConfig(), device="cpu").match(
-        keypoints_from_numpy(k1), torch.as_tensor(d1),
-        keypoints_from_numpy(k2), torch.as_tensor(d2))
+        keypoints_from_numpy(k1, "cpu"), torch.as_tensor(d1),
+        keypoints_from_numpy(k2, "cpu"), torch.as_tensor(d2))
     assert mt.score.shape == (P, d1.shape[1])
     np.testing.assert_allclose(mt.score.numpy(), np.asarray(mj.score),
                                atol=1e-5)

@@ -97,7 +97,7 @@ def test_keypoints_numpy_round_trip():
                strength=rng.random(n), laplace=rng.choice([-1, 1], n),
                ori=np.zeros(n), octave=rng.integers(0, 4, n),
                valid=rng.random(n) < 0.5, count=np.int32(5))
-    kp = keypoints_from_numpy(src)
+    kp = keypoints_from_numpy(src, "cpu")
     assert kp.x.dtype == torch.float32 and kp.laplace.dtype == torch.int32
     assert kp.valid.dtype == torch.bool and kp.count.shape == ()
     assert kp.capacity == n

@@ -100,8 +100,8 @@ def test_match_keypoints_matches_jax(sets, cross_check):
         jnp.asarray(d1),
         JaxKeypoints(**{k: jnp.asarray(v) for k, v in k2.items()}),
         jnp.asarray(d2), cross_check=cross_check)
-    mt = match_keypoints(keypoints_from_numpy(k1), torch.as_tensor(d1),
-                         keypoints_from_numpy(k2), torch.as_tensor(d2),
+    mt = match_keypoints(keypoints_from_numpy(k1, "cpu"), torch.as_tensor(d1),
+                         keypoints_from_numpy(k2, "cpu"), torch.as_tensor(d2),
                          cross_check=cross_check)
     np.testing.assert_allclose(mt.score.numpy(), np.asarray(mj.score), atol=1e-5)
     b, s = _best2_plain(torch.as_tensor(d1), torch.as_tensor(d2),

@@ -42,8 +42,8 @@ def _scene(h, w, doubled):
 @pytest.mark.parametrize("h,w,doubled", SIZES)
 def test_plan_geometry_equals_octave_plan(h, w, doubled):
     cfg, ii = _scene(h, w, doubled)
-    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape)
-    assert tfd.pyramid_plan(cfg, h, w, *ii.shape) is plan      # cached
+    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape, "cpu")
+    assert tfd.pyramid_plan(cfg, h, w, *ii.shape, "cpu") is plan      # cached
     scheds, shapes = cfg.hessian_schedule(h, w), cfg.octave_shapes(h, w)
     tab = plan.dev.numpy()
     assert tab.dtype == np.int32 and np.array_equal(tab, plan.table)
@@ -70,7 +70,7 @@ def test_plan_geometry_equals_octave_plan(h, w, doubled):
 @pytest.mark.parametrize("h,w,doubled", SIZES)
 def test_tile_table_covers_every_output_exactly_once(h, w, doubled):
     cfg, ii = _scene(h, w, doubled)
-    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape)
+    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape, "cpu")
     octs = plan.tiles[:, 0]
     assert (np.diff(octs) <= 0).all() and octs[-1] == 0    # octave 0 last
     for o, (oh, ow) in enumerate(cfg.octave_shapes(h, w)):
@@ -87,7 +87,7 @@ def test_tiled_emulation_matches_twins(h, w, doubled):
     and the other octaves gathering; on a doubled frame every octave
     gathers."""
     cfg, ii = _scene(h, w, doubled)
-    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape)
+    plan = tfd.pyramid_plan(cfg, h, w, *ii.shape, "cpu")
     pyr, masks = tfd.fused_pyramid(ii, cfg, h, w)
     lay_e, mask_e, writes = emulate_kernel_a(ii, plan, cfg.thresh)
     for o in range(cfg.noctaves):
@@ -127,7 +127,7 @@ def test_fused_pyramid_on_a_stack_equals_per_frame_and_jax():
 def test_plan_and_wrapper_reject_what_the_kernel_does_not_take():
     cfg = cst.SurfConfig(noctaves=2, init_mask_size=21)    # 9 layers an octave
     with pytest.raises(ValueError, match="layers"):
-        tfd.pyramid_plan(cfg, 240, 320, 241, 321)
+        tfd.pyramid_plan(cfg, 240, 320, 241, 321, "cpu")
     ii = torch.zeros((2, 2, 50, 60), dtype=torch.int32)
     with pytest.raises(ValueError, match="ii must be"):
         tfd.fused_pyramid(ii, cst.SurfConfig(noctaves=1), 49, 59)

@@ -31,7 +31,10 @@ import cuda_surf_tpu_torch as cst
 from cuda_surf_tpu_torch.config import VO_CONFIG
 from cuda_surf_tpu_torch.io import synth
 from cuda_surf_tpu_torch.slam import (SlamPipeline, evaluate, run_sequence)
+from cuda_surf_tpu_torch.slam.loopclosure import (LoopDetector,
+                                                  optimize_with_loops)
 from cuda_surf_tpu_torch.slam.mapping import KeyframeMap
+from cuda_surf_tpu_torch.types import keypoints_from_numpy
 from cuda_surf_tpu_torch.utils.metrics import MetricsLogger
 
 PLANE = dict(n_frames=6, h=200, w=280, seed=3)
@@ -110,23 +113,24 @@ def test_two_view_ba_polish(plane_seq):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="14a"):
-        _pipe(loop_detect=True)
-    pipe = _pipe()
-    for call in (pipe.optimize_posegraph, pipe.optimize_sim3):
-        with pytest.raises(NotImplementedError, match="14a"):
-            call()
-    for kw in (dict(checkpoint_dir="ckpt"), dict(heartbeat_path="hb")):
-        with pytest.raises(NotImplementedError, match="14b"):
-            run_sequence(pipe, np.zeros((1, 8, 8), np.uint8), **kw)
-    with pytest.raises(NotImplementedError, match="14b"):
-        run_sequence(pipe, ["frame0.pgm"])
+    """Every entry point runs on the card unless asked for the CPU: without
+    a card each raises.  (The loop-closure and checkpoint paths this test
+    once expected to raise NotImplementedError are ported now.)"""
+    pipe = _pipe(loop_detect=True)
+    assert pipe.optimize_posegraph() == 0.0 and pipe.optimize_sim3() == 0.0
     if not torch.cuda.is_available():      # the default device is the card
         one = np.zeros((1, 1), np.float32)
+        intr = synth.Intrinsics(1, 1, 0, 0)
+        kp = dict(x=one[0], y=one[0], scale=one[0], strength=one[0],
+                  laplace=one[0], ori=one[0], octave=one[0], valid=one[0],
+                  count=np.int32(1))
         for make in (lambda: SlamPipeline(cst.SurfConfig(**VO_CONFIG)),
-                     lambda: KeyframeMap(synth.Intrinsics(1, 1, 0, 0)),
+                     lambda: KeyframeMap(intr),
                      lambda: cst.ba.problem_from_numpy(one, one, one),
-                     lambda: cst.ba.state_from_numpy(one, one, one)):
+                     lambda: cst.ba.state_from_numpy(one, one, one),
+                     lambda: LoopDetector(intr),
+                     lambda: keypoints_from_numpy(kp),
+                     lambda: optimize_with_loops([], [])):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
 

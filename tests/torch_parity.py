@@ -14,6 +14,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch while a module that imports this
+    fixture runs, then the earlier count: the port's CPU path is thousands
+    of small operations, and the tier-1 run puts six worker processes on
+    the cores, where every pool thread of every process spins for each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -330,3 +342,41 @@ def emulate_kernel_a(ii, plan, thresh):
             masks[o][s, rr_, cc_] = ok[core]
             writes[o][s, rr_, cc_] += 1
     return layers, masks, writes
+
+
+def jax_pair_raw(i, j, seed=1, n_hypotheses=128, n_pts=5):
+    """The draw of the JAX LoopDetector's verification of pair (i, j):
+    randint(fold_in(PRNGKey(seed), i * 100003 + j), (128, 5))
+    (cuda_surf_tpu/slam/loopclosure.py:83, :137; epipolar.py:217), as a
+    CPU tensor."""
+    import jax
+    import jax.numpy as jnp
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), i * 100003 + j)
+    return torch.as_tensor(np.array(jax.random.randint(
+        key, (n_hypotheses, n_pts), 0, jnp.iinfo(jnp.int32).max), np.int32))
+
+
+def record_jax_verifications(det, log, tag=()):
+    """Wrap a JAX LoopDetector so that every verification appends
+    (*tag, i, j, inliers) to `log`, in order (the JAX detector keeps only
+    a count)."""
+    cand, track, queue = det._candidates, det._track, []
+
+    def candidates(j):
+        c = cand(j)
+        queue.extend((i, j) for i in c)
+        return c
+
+    def counted(*args):
+        res = track(*args)
+        i, j = queue.pop(0)
+        log.append((*tag, i, j, int(res.n_inliers)))
+        return res
+
+    det._candidates, det._track = candidates, counted
+
+
+def loop_raws_for(j, min_gap, seed=1):
+    """{i: raw} of every pair (i, j) the JAX detector may verify at
+    query j."""
+    return {i: jax_pair_raw(i, j, seed) for i in range(j - min_gap + 1)}
