@@ -120,7 +120,29 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        the median SE(3) ATE <= 1.5 x JAX's; a run stopped after 6 frames
        through run_sequence's checkpoint_dir and resumed equals the
        continuous run bit for bit; `slam_loop_frame_ms`, `loop_query_ms`;
-  8. checks the reference stereo pair too, when the environment variable
+  8. drives the multi-device layer (`multidevice`, after `loops`): a world
+     of one over NCCL in this process (initialize_from_env from the SURF_*
+     contract, the group destroyed after), where the mesh BatchSurf of the
+     batch path's 8 frames and its match equal the single-device BatchSurf
+     and match_keypoints, the distributed LM (bench.py's 8 x 512, 10
+     iterations) equals run_lm and optimize_distributed (the n = 600 SE(3)
+     CG graph, 2 steps) equals optimize(solver="cg"), all bit for bit, with
+     launches A 8, B 8, C 1 (`launches_by_path["multidevice"]`); then a
+     world of two, this script started twice with `--multidevice-rank` on
+     cuda:0 over gloo (NCCL refuses two ranks on one card), each rank with
+     launches A 4, B 4, C 1: the batch equal to the single-device one
+     exactly, the BA and the graph within MD_TOL of the world of one, the
+     replicated outputs bit-equal across the ranks, every rank done within
+     MD_RANK_TIMEOUT or all are killed; `mesh_batch8_ms`,
+     `dist_ba_iter_ms` (with the all-reduce's bytes) and
+     `dist_posegraph_iter_ms` (with CG rounds and host reads) at worlds 1
+     and 2, the all-reduces of both counted in `psum`; at the world of one
+     each workload beside its single-device path, like for like, in turns
+     (`multidevice_world1_vs_single`), one graph step and one LM
+     iteration traced (`multidevice_traces`: the all-reduces' host and
+     device time) and
+     `dryrun_multichip(1, full_res=True)`;
+  9. checks the reference stereo pair too, when the environment variable
      SURF_REFERENCE_DATA names the directory that holds it.
 
 Every failure raises, and the exit code is then non-zero.  With no CUDA
@@ -153,6 +175,7 @@ from cuda_surf_tpu_torch import (BatchSurf, Intrinsics, SlamPipeline, Surf,
                                  detect_and_compute_batch, match_keypoints,
                                  track_pair)
 from cuda_surf_tpu_torch.ba import core as ba_core
+from cuda_surf_tpu_torch.ba import distributed as ba_distributed
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
                                         ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
@@ -169,6 +192,9 @@ from cuda_surf_tpu_torch.slam import (LoopClosure, ate_rmse,
                                       run_sequence, sim3graph)
 from cuda_surf_tpu_torch.slam.tracking import track_inputs
 from cuda_surf_tpu_torch.ops import patch_wavelets
+from cuda_surf_tpu_torch.parallel import global_mesh, initialize_from_env
+from cuda_surf_tpu_torch.parallel.mesh import (all_gather_rows,
+                                                collective_counts, psum)
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
                                                 l2_normalize, sample_frame)
 from cuda_surf_tpu_torch.ops.extrema import _candidate_mask
@@ -1613,6 +1639,404 @@ def run_cli_phase(card):
               native_library=native.available(), card=card))
 
 
+# --------------------------------------------------------- multidevice phase
+MD_RANKS = 2
+MD_RANK_TIMEOUT = 300      # seconds for both ranks, start-up included
+MD_BA_ITERS = 10
+MD_PG_STEPS = 2
+# the world of two against the world of one: sums over two ranks round in
+# another order (tests/test_ba.py and tests/test_posegraph.py hold JAX's
+# distributed paths at 1e-2 / 1e-3).  On the card the BA's t reads 7.9e-5
+# and the graph's 5.5e-5 (the CPU: 2.3e-4 and 5.1e-4; the BA's gauge fixes
+# camera 0 alone, so the scale of the camera line drifts with the rounding,
+# and the graph's CG runs 353 and 1299 rounds), both within 1e-4; the
+# graph's costs read 1.26e-4 relative (the second step's cost, 0.029: 3e-7
+# of the first), so they are held at the JAX test's 1e-3
+MD_TOL = dict(ba_cost_rtol=1e-4, ba_t=1e-4, pg_t=1e-4, pg_cost_rtol=1e-3)
+MD_LAUNCHES = {1: {"A": 8, "B": 8, "C": 1}, 2: {"A": 4, "B": 4, "C": 1}}
+
+
+def md_inputs(frames):
+    """The phase's inputs, the same in every process: the batch path's 8
+    frames, bench.py's BA problem on the card, and the n = 600 SE(3) CG
+    graph of the posegraph phase."""
+    (ci, uv, mask), (R, t, X) = ba_problem()
+    prob = ba_core.problem_from_numpy(ci, uv, mask, "cuda")
+    state = ba_core.state_from_numpy(R, t, X, "cuda")
+    g = np.load(os.path.join(DATA, "golden_posegraph.npz"))
+    _, graph, solver, _ = posegraph_case(g, "se3_600")
+    if solver != "cg":
+        raise AssertionError("multidevice: se3_600 is not the CG case")
+    return SimpleNamespace(frames=frames, prob=prob, state=state,
+                           graph=graph, cfg=SurfConfig(**MAIN_CONFIG))
+
+
+def md_run(mesh, inp):
+    """The three workloads on `mesh`, each rank on its own share: the mesh
+    BatchSurf of the 8 frames and its match of frame i -> i + 1, the
+    distributed LM (MD_BA_ITERS iterations) and optimize_distributed
+    (MD_PG_STEPS steps).  -> every output on the host (the rank's points
+    all-gathered)."""
+    bs = BatchSurf(inp.cfg, device="cuda", mesh=mesh)
+    kps, descs = bs.detect_and_compute(inp.frames)
+    sub = lambda sl: Keypoints(*[f[sl] for f in kps])
+    m = bs.match(sub(slice(0, -1)), descs[:-1], sub(slice(1, None)),
+                 descs[1:])
+    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
+    ba, ba_cost = ba_distributed.make_distributed_lm(
+        mesh, inp.state.R.shape[0], n_iters=MD_BA_ITERS)(sstate, sprob)
+    stats = {}
+    pg, pg_costs = posegraph.optimize_distributed(
+        inp.graph, mesh, n_iters=MD_PG_STEPS, stats=stats)
+    out = {f"kp_{k}": v for k, v in kps._asdict().items()}
+    out.update(descs=descs, match_score=m.score, match_index=m.index,
+               ba_R=ba.R, ba_t=ba.t,
+               ba_points=all_gather_rows(ba.points, mesh), ba_cost=ba_cost,
+               pg_R=pg.R, pg_t=pg.t, pg_costs=pg_costs)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["pg_rounds"] = np.asarray(stats["cg_rounds"])
+    return out
+
+
+def md_times(mesh, inp) -> dict:
+    """The workloads' times on `mesh`: the mesh batch on the host clock up
+    to a synchronise (input on the host, all-gather included), one LM
+    iteration and one Gauss-Newton step of the graph with CUDA events.
+    Every rank makes the same calls, in the same order."""
+    bs = BatchSurf(inp.cfg, device="cuda", mesh=mesh)
+    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
+    C = inp.state.R.shape[0]
+    lam = torch.full((), 1e-3, device=mesh.device)
+    c0 = psum(ba_core.cost(sstate, sprob), mesh)
+    ba_iter = lambda: ba_distributed.lm_iteration(mesh, C, sstate, sprob,
+                                                  lam, c0)
+    ba_calls = count_allreduces(ba_iter)
+    stats = {}
+    pg_calls = count_allreduces(lambda: posegraph.optimize_distributed(
+        inp.graph, mesh, n_iters=1, stats=stats))
+    n = inp.graph.R.shape[0]
+    return dict(
+        mesh_batch8_ms=dict(value=time_wall_ms(
+            lambda: bs.detect_and_compute(inp.frames), 1, 5)),
+        dist_ba_iter_ms=dict(
+            value=time_ms(ba_iter), allreduces=ba_calls,
+            # the camera system packed in one buffer, the candidate's cost
+            allreduce_bytes=[ba_distributed.allreduce_bytes(C), 4]),
+        dist_posegraph_iter_ms=dict(
+            value=time_ms(lambda: posegraph.optimize_distributed(
+                inp.graph, mesh, n_iters=1), 1, 3),
+            cg_rounds=stats["cg_rounds"][0],
+            host_reads=stats["host_reads"][0],
+            # counted in psum: b, D and the cost once a step, one a CG
+            # round (masked ones included)
+            allreduces=pg_calls,
+            allreduce_bytes=dict(b=4 * 6 * n, D=4 * 36 * n,
+                                 matvec=4 * 6 * n)))
+
+
+def count_allreduces(fn) -> int:
+    """The all-reduces that one call of `fn` makes through psum (0 without
+    a group)."""
+    collective_counts["all_reduce"] = 0
+    fn()
+    return collective_counts["all_reduce"]
+
+
+def md_single_pairs(mesh, inp) -> dict:
+    """Each workload at the world of one beside its single-device path on
+    the same inputs, like for like and timed in turns (single, mesh, mesh,
+    single, ...): the batch of 8 (BatchSurf without and with the mesh,
+    host clock), one LM iteration (lm_step + cost + select against
+    lm_iteration, CUDA events) and one Gauss-Newton step of the graph
+    (optimize(solver="cg") against optimize_distributed, each with its
+    segment table, CUDA events and host clock).  -> {metric: {single,
+    mesh, ratio}}, medians."""
+    C = inp.state.R.shape[0]
+    lam = torch.full((), 1e-3, device=mesh.device)
+    c0 = ba_core.cost(inp.state, inp.prob)
+    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
+    c0m = psum(ba_core.cost(sstate, sprob), mesh)
+
+    def lm_single():
+        cand = ba_core.lm_step(inp.state, inp.prob, lam, C)
+        return ba_core.lm_select(inp.state, cand, lam, c0,
+                                 ba_core.cost(cand, inp.prob))
+    single_bs = BatchSurf(inp.cfg, device="cuda")
+    mesh_bs = BatchSurf(inp.cfg, device="cuda", mesh=mesh)
+    work = dict(
+        batch8_ms=(lambda: single_bs.detect_and_compute(inp.frames),
+                   lambda: mesh_bs.detect_and_compute(inp.frames), 4),
+        ba_iter_ms=(lm_single, lambda: ba_distributed.lm_iteration(
+            mesh, C, sstate, sprob, lam, c0m), 10),
+        posegraph_iter_ms=(
+            lambda: posegraph.optimize(inp.graph, n_iters=1, solver="cg"),
+            lambda: posegraph.optimize_distributed(inp.graph, mesh,
+                                                   n_iters=1), 3))
+    out = {}
+    for metric, (single, on_mesh, rounds) in work.items():
+        single(), on_mesh()                              # warm-up
+        ev = {"single": [], "mesh": []}
+        wall = {"single": [], "mesh": []}
+        for _ in range(rounds):
+            for name in ("single", "mesh", "mesh", "single"):
+                fn = single if name == "single" else on_mesh
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                wall[name].append((time.perf_counter() - t0) * 1e3)
+                ev[name].append(a.elapsed_time(b))
+        med = {k: statistics.median(v) for k, v in ev.items()}
+        wmed = {k: statistics.median(v) for k, v in wall.items()}
+        out[metric] = dict(single=med["single"], mesh=med["mesh"],
+                           ratio=med["mesh"] / med["single"],
+                           wall_single=wmed["single"], wall_mesh=wmed["mesh"],
+                           wall_ratio=wmed["mesh"] / wmed["single"],
+                           runs=2 * rounds)
+    return out
+
+
+def md_trace(step) -> dict | None:
+    """One call of `step` at the world of one, first plain with the host
+    time inside each `torch.distributed.all_reduce` summed, then under
+    torch.profiler: the all-reduces (counted in psum), their host time
+    (the `c10d::allreduce_` operator with what it calls; its
+    `record_param_comms` self time, the backend's collective body) and the
+    device time of the backend's kernels (names with "nccl"), beside the
+    call's device operations and their summed time, and the heaviest host
+    operators and device kernels.  The profiled part is None when the
+    profiler records no device activity in three sessions (a reading, not
+    a check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    spent, bare = [], torch.distributed.all_reduce
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = bare(*args, **kw)
+        spent.append(time.perf_counter() - t)
+        return out
+    torch.distributed.all_reduce = timed
+    try:
+        step()
+    finally:
+        torch.distributed.all_reduce = bare
+    torch.cuda.synchronize()
+    out = dict(allreduce_host_us_plain=sum(spent) * 1e6,
+               allreduce_host_us_plain_each=sum(spent) * 1e6 / len(spent))
+    for _ in range(3):
+        collective_counts["all_reduce"] = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    else:
+        return dict(out, profiled=None)
+    kernels = {}
+    for e in dev:
+        k = kernels.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += e.time_range.elapsed_us()
+    cpu = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
+    ar = [a for a in cpu if a.key == "c10d::allreduce_"]
+    nccl = [(n, c, us) for n, (c, us) in kernels.items()
+            if "nccl" in n.lower()]
+    top = lambda rows: [dict(name=n[:80], count=c, us=round(us, 1))
+                        for n, c, us in sorted(rows, key=lambda r: -r[2])[:8]]
+    return dict(
+        out, allreduces=collective_counts["all_reduce"],
+        allreduce_host_ops=sum(a.count for a in ar),
+        allreduce_host_us=sum(a.cpu_time_total for a in ar),
+        record_param_comms_self_us=sum(a.self_cpu_time_total for a in cpu
+                                       if a.key == "record_param_comms"),
+        allreduce_device_kernels=sum(c for _, c, _ in nccl),
+        allreduce_device_us=sum(us for *_, us in nccl),
+        clones=sum(a.count for a in cpu if a.key == "aten::clone"),
+        device_ops=len(dev), device_us=sum(e.time_range.elapsed_us()
+                                           for e in dev),
+        top_host_ops=top([(a.key, a.count, a.self_cpu_time_total)
+                          for a in cpu]),
+        top_device_kernels=top([(n, c, us) for n, (c, us) in
+                                kernels.items()]))
+
+
+def md_traces(mesh, inp) -> dict:
+    """md_trace of one optimize_distributed step of the n = 600 graph and
+    of one distributed LM iteration."""
+    C = inp.state.R.shape[0]
+    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
+    lam = torch.full((), 1e-3, device=mesh.device)
+    c0 = psum(ba_core.cost(sstate, sprob), mesh)
+    return dict(
+        posegraph_step=md_trace(lambda: posegraph.optimize_distributed(
+            inp.graph, mesh, n_iters=1)),
+        ba_iteration=md_trace(lambda: ba_distributed.lm_iteration(
+            mesh, C, sstate, sprob, lam, c0)))
+
+
+def md_world(mesh, inp, name):
+    """md_run counted (the counts set to 0 just before and read just after,
+    held to MD_LAUNCHES), then md_times.  -> (outputs, counts, times)."""
+    reset_counts()
+    out = md_run(mesh, inp)
+    counts = read_counts(name, MD_LAUNCHES[mesh.size])
+    return out, counts, md_times(mesh, inp)
+
+
+def multidevice_rank(out_dir) -> int:
+    """One rank of the phase's world of two, started by
+    run_multidevice_phase with the SURF_* variables set: both ranks on
+    cuda:0 over gloo (NCCL refuses two ranks on one card).  Writes its
+    outputs to out_dir/rank<r>.npz and prints its launches and times as
+    one JSON line."""
+    initialize_from_env(timeout_s=MD_RANK_TIMEOUT, backend="gloo",
+                        device="cuda:0")
+    mesh = global_mesh()
+    inp = md_inputs(np.load(os.path.join(out_dir, "frames.npy")))
+    out, counts, times = md_world(mesh, inp, f"multidevice rank "
+                                  f"{mesh.rank}")
+    np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
+    emit(dict(multidevice_rank=mesh.rank, backend=mesh.backend,
+              device=str(mesh.device), launches=counts, **times))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def md_compare(name, got, want, keys):
+    for k in keys:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"multidevice {name}: {k} differs")
+
+
+def run_multidevice_phase(card):
+    """The multi-device layer on the one card.  World of one: NCCL in this
+    process (initialize_from_env from the SURF_* contract, the group
+    destroyed after); the mesh batch equal to the single-device BatchSurf,
+    the distributed LM to run_lm and optimize_distributed to
+    optimize(solver="cg"), all bit for bit; launches A 8, B 8, C 1.  World
+    of two: two processes of this script on cuda:0 over gloo, each with its
+    launches A 4, B 4, C 1; the batch equal to the single-device one, the
+    BA and graph within MD_TOL of the world of one, the replicated outputs
+    bit-equal across the ranks.  Then the times of both worlds."""
+    from cuda_surf_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                     free_port, launch)
+    frames = main_batch(BATCH_FRAMES)
+    inp = md_inputs(frames)
+    ks, ds = BatchSurf(inp.cfg, device="cuda").detect_and_compute(frames)
+    sub = lambda sl: Keypoints(*[f[sl] for f in ks])
+    ms = match_keypoints(sub(slice(0, -1)), ds[:-1], sub(slice(1, None)),
+                         ds[1:])
+    ba, ba_cost = ba_core.run_lm(inp.state, inp.prob, n_iters=MD_BA_ITERS)
+    pg_stats = {}
+    pg, pg_costs = posegraph.optimize(inp.graph, n_iters=MD_PG_STEPS,
+                                      solver="cg", stats=pg_stats)
+    single = {f"kp_{k}": v for k, v in ks._asdict().items()}
+    single.update(descs=ds, match_score=ms.score, match_index=ms.index,
+                  ba_R=ba.R, ba_t=ba.t, ba_points=ba.points, ba_cost=ba_cost,
+                  pg_R=pg.R, pg_t=pg.t, pg_costs=pg_costs)
+    single = {k: v.cpu().numpy() for k, v in single.items()}
+    single["pg_rounds"] = np.asarray(pg_stats["cg_rounds"])
+    batch_keys = [k for k in single if k.startswith(("kp_", "descs",
+                                                     "match_"))]
+
+    env = dict(SURF_COORDINATOR=f"127.0.0.1:{free_port()}",
+               SURF_NUM_PROCESSES="1", SURF_PROCESS_ID="0")
+    os.environ.update(env)
+    try:
+        initialize_from_env(backend="nccl", device="cuda:0")
+        mesh = global_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"multidevice: world of one is {mesh}")
+        out1, counts, times1 = md_world(mesh, inp, "multidevice")
+        pairs = md_single_pairs(mesh, inp)
+        traces = md_traces(mesh, inp)
+        full_res = dryrun_multichip(1, full_res=True)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            del os.environ[k]
+    md_compare("world of one", out1, single, list(single))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "frames.npy"), frames)
+        logs = launch(MD_RANKS, [os.path.abspath(__file__),
+                                 "--multidevice-rank", d], MD_RANK_TIMEOUT)
+        ranks = [dict(np.load(os.path.join(d, f"rank{r}.npz")))
+                 for r in range(MD_RANKS)]
+    start_s = time.perf_counter() - t0
+    lines = [json.loads(next(ln for ln in log.splitlines()
+                             if ln.startswith('{"multidevice_rank"')))
+             for log in logs]
+    for r, res in enumerate(ranks):
+        md_compare(f"rank {r} against the single-device batch", res, single,
+                   batch_keys)
+        md_compare(f"rank {r} against rank 0", res, ranks[0], list(res))
+    got = ranks[0]
+    err = dict(
+        ba_cost_rel=abs(float(got["ba_cost"]) - float(single["ba_cost"]))
+        / float(single["ba_cost"]),
+        ba_t=float(np.abs(got["ba_t"] - single["ba_t"]).max()),
+        pg_t=float(np.abs(got["pg_t"] - single["pg_t"]).max()),
+        pg_cost_rel=float((np.abs(got["pg_costs"] - single["pg_costs"])
+                           / single["pg_costs"]).max()))
+    bad = [f"{k} {v} > {MD_TOL[k.replace('_rel', '_rtol')]}"
+           for k, v in err.items()
+           if not v <= MD_TOL[k.replace("_rel", "_rtol")]]
+    emit(dict(phase="multidevice", world1=dict(
+        backend="nccl", launches=counts, equal_bit_for_bit=True,
+        ba_cost=float(single["ba_cost"]), pg_costs=single[
+            "pg_costs"].tolist(), pg_rounds=single["pg_rounds"].tolist()),
+        world2=dict(backend=lines[0]["backend"],
+                    devices=[ln["device"] for ln in lines],
+                    launches=[ln["launches"] for ln in lines],
+                    batch_equal_single_device=True,
+                    ranks_bit_equal=True, err=err, tolerances=MD_TOL,
+                    pg_rounds=got["pg_rounds"].tolist(),
+                    seconds=start_s), card=card))
+    if bad:
+        raise AssertionError("multidevice world of two: " + "; ".join(bad))
+    if not full_res["ba_cost"] < full_res["ba_cost0"]:
+        raise AssertionError(f"multidevice full-res dry run: {full_res}")
+    emit(dict(phase="multidevice_dryrun_full_res", **full_res))
+    emit(dict(metric="multidevice_world1_vs_single", pairs=pairs,
+              what="each workload at the world of one (NCCL) beside its "
+              "single-device path, like for like, in turns; medians of "
+              "CUDA events and of the host clock", card=card))
+    emit(dict(metric="multidevice_traces", **traces,
+              what="one optimize_distributed step of the n = 600 graph and "
+              "one distributed LM iteration at the world of one (NCCL): "
+              "host time inside the all-reduces, then torch.profiler",
+              card=card))
+    what = dict(mesh_batch8_ms="mesh BatchSurf of the 8 1280x960 frames, "
+                "host input, all-gather included, host clock",
+                dist_ba_iter_ms="one distributed LM iteration, 8 cameras x "
+                "512 points, CUDA events",
+                dist_posegraph_iter_ms="one optimize_distributed step of "
+                "the n = 600 SE(3) graph (padding, table, blocks, CG), CUDA "
+                "events")
+    for metric, text in what.items():
+        emit(dict(metric=metric, world1=times1[metric]["value"],
+                  world2=[ln[metric]["value"] for ln in lines],
+                  **{k: v for k, v in times1[metric].items() if k != "value"},
+                  what=text, note="world 2: two processes on one card over "
+                  "gloo: the communication path, not scaling",
+                  nccl=".".join(map(str, torch.cuda.nccl.version())),
+                  card=card))
+    return counts
+
+
 def reference_pair(cfg):
     left = os.path.join(REFERENCE_DATA, "left.pgm")
     right = os.path.join(REFERENCE_DATA, "right.pgm")
@@ -1764,6 +2188,7 @@ def main() -> int:
     counts["posegraph"] = run_posegraph_phase(card)
     run_cli_phase(card)
     counts["loops"] = run_loops_phase(card)
+    counts["multidevice"] = run_multidevice_phase(card)
     for k, r in res.items():
         emit(dict(metric=f"kernel_{k}_ms", value=r["ms"],
                   plain_ms=r["plain_ms"], **times(r), card=card))
@@ -1867,4 +2292,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multidevice-rank"]:
+        sys.exit(multidevice_rank(sys.argv[2]))
     sys.exit(main())

@@ -9,9 +9,13 @@ the visual-odometry path: two-view geometry (8-point and 5-point RANSAC),
 `SlamPipeline`, and the SLAM backend: loop closure, the SE(3) and Sim(3)
 pose graphs, checkpoint / resume, the sequence driver with its loaders,
 and the two demo CLIs (`python -m cuda_surf_tpu_torch.demo`,
-`python -m cuda_surf_tpu_torch.slam.demo`).  This package imports torch
-and never jax; the JAX package beside it is the reference it is tested
-against.
+`python -m cuda_surf_tpu_torch.slam.demo`), and the multi-device layer
+(`parallel`: one process per device on a `torch.distributed` group, the
+mesh `BatchSurf`, `ba.make_distributed_lm`,
+`slam.posegraph.optimize_distributed`, elastic recovery, and the dry run
+`python -m cuda_surf_tpu_torch.parallel.dryrun`).  This package imports
+torch and never jax; the JAX package beside it is the reference it is
+tested against.
 """
 
 import torch

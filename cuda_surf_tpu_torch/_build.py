@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -121,6 +122,21 @@ def _build(sources, so: Path, stamp: Path, digest: str) -> str:
     return log
 
 
+@contextlib.contextmanager
+def build_lock(name: str):
+    """An exclusive lock on `_build/<name>.lock` (`fcntl.flock`: the kernel
+    drops it when its holder exits, so a killed build leaves no stale
+    lock) for the block: serialises the build of one library across the
+    processes that share the directory."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @functools.cache
 def kernels() -> KernelLib:
     """The loaded kernel library, built first if it is missing or stale."""
@@ -129,10 +145,14 @@ def kernels() -> KernelLib:
     so, stamp = BUILD_DIR / LIB_NAME, BUILD_DIR / (LIB_NAME + ".sha256")
     t0 = time.perf_counter()
     log = ""
-    if not (so.exists() and stamp.exists() and stamp.read_text() == digest):
-        log = _build(sources, so, stamp, digest)
-    seconds = time.perf_counter() - t0 if log else 0.0
-    lib = ctypes.CDLL(str(so))
+    # several ranks start at once: one builds, the others wait on the lock
+    # and then load its library
+    with build_lock(LIB_NAME):
+        if not (so.exists() and stamp.exists()
+                and stamp.read_text() == digest):
+            log = _build(sources, so, stamp, digest)
+        seconds = time.perf_counter() - t0 if log else 0.0
+        lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

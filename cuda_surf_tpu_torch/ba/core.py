@@ -223,6 +223,13 @@ def lm_step(state: BAState, prob: BAProblem, lam, n_cameras: int,
     (`solve_ex`: no host check), the points back-substituted."""
     Sm, bv, Vinv, W, g_p = _schur_system(state, prob, lam, n_cameras,
                                          huber_delta)
+    return _solve_and_update(state, prob, n_cameras, Sm, bv, Vinv, W, g_p)
+
+
+def _solve_and_update(state: BAState, prob: BAProblem, n_cameras: int, Sm,
+                      bv, Vinv, W, g_p) -> BAState:
+    """The camera increment from the reduced system (Sm, bv), the points
+    back-substituted, both applied."""
     dc = torch.linalg.solve_ex(Sm, bv[:, None])[0][:, 0].reshape(
         n_cameras, 6)
     # back-substitute points: dp = -Vinv (g_p + W^T dc); one-hot select
@@ -247,11 +254,16 @@ def run_lm(state: BAState, prob: BAProblem, n_iters: int = 10,
     lam = torch.full((), lam0, dtype=torch.float32, device=c0.device)
     for _ in range(n_iters):
         cand = lm_step(state, prob, lam, n_cameras, huber_delta)
-        c1 = cost(cand, prob, huber_delta)
-        ok = (c1 < c0) & torch.isfinite(c1)
-        state = BAState(*(torch.where(ok, b, a)
-                          for a, b in zip(state, cand)))
-        lam = torch.where(ok, torch.clamp(lam * 0.3, min=1e-9),
-                          torch.clamp(lam * 8.0, max=1e6))
-        c0 = torch.where(ok, c1, c0)
+        state, lam, c0 = lm_select(state, cand, lam, c0,
+                                   cost(cand, prob, huber_delta))
     return state, c0
+
+
+def lm_select(state: BAState, cand: BAState, lam, c0, c1):
+    """LM's accept / reject of a candidate at cost c1 against c0, a select
+    on the device.  -> (state, lam, cost)."""
+    ok = (c1 < c0) & torch.isfinite(c1)
+    state = BAState(*(torch.where(ok, b, a) for a, b in zip(state, cand)))
+    lam = torch.where(ok, torch.clamp(lam * 0.3, min=1e-9),
+                      torch.clamp(lam * 8.0, max=1e6))
+    return state, lam, torch.where(ok, c1, c0)

@@ -10,6 +10,7 @@ library is missing.  `FrameLoader.path` says which one a loader took.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -29,19 +30,24 @@ _tried = False
 def _build() -> str | None:
     if not os.path.exists(_SRC):
         return None
-    if os.path.exists(_LIB_PATH) and (
-            os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
-             _SRC, "-o", tmp], check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _LIB_PATH)    # concurrent builders: last one wins
-        return _LIB_PATH
-    except (OSError, subprocess.SubprocessError):
-        return None
+    # several ranks start at once: one builds, the others wait on the lock
+    # (fcntl.flock, dropped when its holder exits) and load its library
+    with open(f"{_LIB_PATH}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH) and (
+                os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
+            return _LIB_PATH
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
+                 _SRC, "-o", tmp], check=True, capture_output=True,
+                timeout=120)
+            os.replace(tmp, _LIB_PATH)
+            return _LIB_PATH
+        except (OSError, subprocess.SubprocessError):
+            return None
 
 
 def _load():

@@ -1,5 +1,5 @@
 """Pose-graph optimisation, Gauss-Newton over SE(3) relative constraints
-(port of cuda_surf_tpu/slam/posegraph.py, single device).
+(port of cuda_surf_tpu/slam/posegraph.py).
 
 Per-edge residual Jacobians come from forward-mode autodiff at the zero
 increment (`torch.func.jacfwd`, vmapped over the edges), as in the
@@ -23,11 +23,14 @@ device.  Eager torch would read that test on the host every round, so the
 rounds run in chunks of CG_CHUNK: each round applies its update only
 where the stop test still holds (the result equals the while loop's), and
 the host reads the stop flag once a chunk.
+
+`optimize_distributed` splits the edges over the ranks of a mesh
+(`parallel.mesh`): the CG path with an all-reduce after every segment sum.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ from torch.func import jacfwd, vmap
 
 from ..frontend import require_device
 from ..geometry.pose import compose, exp_so3, invert, log_so3
+from ..parallel.mesh import psum, replicated, shard_rows
 
 # Dense one-hot assembly up to this node count, matrix-free CG above.
 _DENSE_MAX_NODES = 64
@@ -168,6 +172,10 @@ def segment_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return padded[table].sum(1)
 
 
+def _identity(x):
+    return x
+
+
 class CGState(NamedTuple):
     k: torch.Tensor        # () int64 rounds taken
     x: torch.Tensor        # (n, d)
@@ -188,22 +196,26 @@ class CGSystem(NamedTuple):
     b: torch.Tensor
     stop: torch.Tensor     # () the reference's cg_tol * (|b|^2 + 1e-30)
     cg_iters: int
+    reduce: Callable = _identity   # sums a per-node array over the ranks
 
 
 def _cg_system(graph, table, n, damping, Hii, Hjj, Hij, bi, bj,
-               cg_iters, cg_tol=1e-8):
+               cg_iters, cg_tol=1e-8, reduce=_identity):
+    """The CG system of the step.  `reduce` sums each per-node segment sum
+    over the ranks that hold the other edges (`optimize_distributed`);
+    the gauge and the damping are applied after it."""
     d = Hii.shape[-1]
     eye = torch.eye(d, device=Hii.device)
-    b = segment_sum(torch.cat([bi, bj]), table)
+    b = reduce(segment_sum(torch.cat([bi, bj]), table))
     b = torch.cat([torch.zeros_like(b[:1]), b[1:]])        # gauge node 0
     # block-Jacobi preconditioner: inverse of the diagonal dxd blocks
-    D = segment_sum(torch.cat([Hii, Hjj]), table)
+    D = reduce(segment_sum(torch.cat([Hii, Hjj]), table))
     D = D + damping * eye + 1e-9 * eye
     D = torch.cat([eye[None], D[1:]])
     Dinv, _ = torch.linalg.inv_ex(D)
     stop = cg_tol * (torch.sum(b * b) + 1e-30)
     return CGSystem(graph, table, damping, Hii, Hjj, Hij, Dinv, b, stop,
-                    cg_iters)
+                    cg_iters, reduce)
 
 
 def _matvec(s: CGSystem, x):
@@ -214,7 +226,8 @@ def _matvec(s: CGSystem, x):
     mv = lambda A, v: (A @ v[..., None])[..., 0]
     yi = mv(s.Hii, xi) + mv(s.Hij, xj)
     yj = mv(s.Hij.transpose(1, 2), xi) + mv(s.Hjj, xj)
-    y = segment_sum(torch.cat([yi, yj]), s.table) + s.damping * xg
+    y = s.reduce(segment_sum(torch.cat([yi, yj]), s.table)) + \
+        s.damping * xg
     return torch.cat([x[:1], y[1:]])
 
 
@@ -290,10 +303,11 @@ def robust_factors(r, robust_delta, robust_mask):
 
 
 def solve_step(graph, n, solver, damping, cg_iters, robust_delta,
-               robust_mask, blocks, table=None, stats=None):
+               robust_mask, blocks, table=None, stats=None,
+               reduce=_identity):
     """The increment dx (n, d) of one Gauss-Newton step from the edge
     blocks (r, Hii, Hjj, Hij, bi, bj), shared by the SE(3) and Sim(3)
-    graphs."""
+    graphs and by `optimize_distributed` (CG, with its `reduce`)."""
     r, Hii, Hjj, Hij, bi, bj = blocks
     if robust_delta is not None:
         f = robust_factors(r, robust_delta, robust_mask)
@@ -302,7 +316,7 @@ def solve_step(graph, n, solver, damping, cg_iters, robust_delta,
     if solver == "dense":
         return _solve_dense(graph, n, damping, Hii, Hjj, Hij, bi, bj)
     s = _cg_system(graph, table, n, damping, Hii, Hjj, Hij, bi, bj,
-                   cg_iters)
+                   cg_iters, reduce=reduce)
     return _solve_cg(s, stats)
 
 
@@ -338,4 +352,70 @@ def optimize(graph: PoseGraph, n_iters: int = 10, damping: float = 1e-6,
         R = exp_so3(dx[:, :3]) @ R
         t = t + dx[:, 3:]
         costs.append(torch.sum(blocks[0] * blocks[0]))
+    return graph._replace(R=R, t=t), torch.stack(costs)
+
+
+# ----------------------------------------------------- distributed (mesh)
+
+def _pad_graph_edges(graph: PoseGraph, multiple: int) -> PoseGraph:
+    """Pad the edge axis to a multiple with zero-weight identity
+    self-edges (0, 0, rel=I): their weight zeroes every normal-equation
+    block, so padding is inert."""
+    E = graph.edge_i.shape[0]
+    pad = (-E) % multiple
+    if pad == 0:
+        return graph
+    zi = graph.edge_i.new_zeros(pad)
+    eye = torch.eye(3, dtype=graph.rel_R.dtype,
+                    device=graph.rel_R.device).expand(pad, 3, 3)
+    return graph._replace(
+        edge_i=torch.cat([graph.edge_i, zi]),
+        edge_j=torch.cat([graph.edge_j, zi]),
+        rel_R=torch.cat([graph.rel_R, eye]),
+        rel_t=torch.cat([graph.rel_t, graph.rel_t.new_zeros(pad, 3)]),
+        weight=torch.cat([graph.weight, graph.weight.new_zeros(pad)]))
+
+
+def optimize_distributed(graph: PoseGraph, mesh, n_iters: int = 10,
+                         damping: float = 1e-6,
+                         cg_iters: int | None = None,
+                         robust_delta: float | None = None,
+                         robust_mask: torch.Tensor | None = None,
+                         stats: dict | None = None):
+    """Pose-graph Gauss-Newton with the EDGE axis split over the ranks of
+    `mesh` (every rank passes the whole graph).
+
+    The edges are padded to a multiple of the mesh size with inert
+    self-edges and split; each rank linearises only its own edges and sums
+    them per node through its own `segment_table`, and one all-reduce after
+    each segment sum (b, D, and every CG matvec: `CG_CHUNK` a chunk, masked
+    rounds included) completes the node-indexed normal equations, on which
+    the gauge and the damping are applied.  The stop test reads
+    all-reduced values, so every rank stops at the same chunk.  Nodes are
+    replicated.  At a world of one this is `optimize(solver="cg")`.
+
+    Returns (optimised PoseGraph [original edge count], costs (n_iters,):
+    the cost before each step, summed over the ranks)."""
+    E = graph.edge_i.shape[0]
+    gp = _pad_graph_edges(graph, mesh.size)
+    rmask = None
+    if robust_delta is not None:
+        rmask = torch.ones(E, dtype=torch.bool) if robust_mask is None \
+            else robust_mask.cpu()
+        rmask = shard_rows(torch.cat([rmask, torch.zeros(
+            gp.edge_i.shape[0] - E, dtype=torch.bool)]), mesh)
+    local = PoseGraph(replicated(gp.R, mesh), replicated(gp.t, mesh),
+                      *(shard_rows(a, mesh) for a in gp[2:]))
+    n = gp.R.shape[0]
+    _, cg_iters, table = solver_plan(local, n, "cg", cg_iters)
+    reduce = lambda x: psum(x, mesh)
+    R, t = local.R, local.t
+    costs = []
+    for _ in range(n_iters):
+        blocks = _edge_blocks(local, R, t)
+        dx = solve_step(local, n, "cg", damping, cg_iters, robust_delta,
+                        rmask, blocks, table, stats, reduce)
+        R = exp_so3(dx[:, :3]) @ R
+        t = t + dx[:, 3:]
+        costs.append(reduce(torch.sum(blocks[0] * blocks[0])))
     return graph._replace(R=R, t=t), torch.stack(costs)

@@ -1,6 +1,8 @@
 """Shared helpers of the tests that hold the PyTorch port
 (cuda_surf_tpu_torch) against the JAX package on the same inputs."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -380,3 +382,30 @@ def loop_raws_for(j, min_gap, seed=1):
     """{i: raw} of every pair (i, j) the JAX detector may verify at
     query j."""
     return {i: jax_pair_raw(i, j, seed) for i in range(j - min_gap + 1)}
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_multidevice_worker.py")
+
+
+def run_ranks(task, nproc, tmp_path, inputs, device="cpu", backend="gloo",
+              timeout=240):
+    """Run `task` of torch_multidevice_worker.py on `nproc` ranks through the
+    port's launcher (SURF_* set, a free port; every rank killed on a
+    failure or after `timeout` s), with `inputs` (a dict of arrays) in one
+    npz; -> each rank's results, in rank order."""
+    from cuda_surf_tpu_torch.parallel.dryrun import launch
+    out = tmp_path / f"{task}_{nproc}"
+    out.mkdir()
+    np.savez(out / "in.npz", **inputs)
+    launch(nproc, [WORKER, task, str(out / "in.npz"), str(out),
+                   "--device", device, "--backend", backend], timeout)
+    return [dict(np.load(out / f"rank{r}.npz")) for r in range(nproc)]
+
+
+def assert_ranks_equal(ranks, keys):
+    """Values that every rank holds replicated: the same bits on each."""
+    for k in keys:
+        for r, res in enumerate(ranks[1:], 1):
+            np.testing.assert_array_equal(res[k], ranks[0][k],
+                                          err_msg=f"{k}: rank {r} vs 0")
