@@ -1,0 +1,4 @@
+"""Kernel A's share of its roofline in a batch cell, in per cent (see
+`_common.detect_roofline`)."""
+
+from portbench.layer_metrics._common import detect_roofline as read  # noqa: F401

@@ -1,0 +1,201 @@
+"""Monocular visual-odometry pipeline, plain PyTorch: a frozen copy of
+the port's `SlamPipeline` without loop detection, its frontend and
+matcher the plain twins.
+
+Per frame: SURF features, frame-to-frame tracking (match, then RANSAC on
+the essential matrix), optionally a two-view BA polish and a windowed BA
+over a keyframe map, then the median-depth-ratio scale chain and the pose
+accumulation on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from ..ba import BAProblem, BAState, run_lm
+from ..config import SurfConfig
+from ..frontend import Surf, require_device
+from ..geometry.epipolar import normalize_with_intrinsics
+from ..types import Intrinsics
+from .mapping import KeyframeMap
+from .tracking import default_intrinsics, track_pair
+
+
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _refine_pair(res, kp1, intr: Intrinsics, n_iters: int = 5):
+    """Two-view bundle adjustment polish of a tracked pair: the RANSAC
+    relative pose and triangulated points refined by masked LM over the
+    inlier reprojections (camera 0 gauge-fixed at identity).  Returns
+    (R, t) with t renormalised to unit length (monocular gauge)."""
+    m = res.matches
+    x1 = normalize_with_intrinsics(torch.stack([kp1.x, kp1.y], -1),
+                                   intr.fx, intr.fy, intr.cx, intr.cy)
+    x2 = normalize_with_intrinsics(torch.stack([m.match_x, m.match_y], -1),
+                                   intr.fx, intr.fy, intr.cx, intr.cy)
+    P = x1.shape[0]
+    dev = x1.device
+    cam_idx = torch.arange(2, dtype=torch.int32, device=dev).repeat(P, 1)
+    uv = torch.stack([x1, x2], 1)                          # (P, 2, 2)
+    mask = torch.stack([res.inliers, res.inliers], 1)
+    prob = BAProblem(cam_idx=cam_idx, uv=uv, mask=mask)
+    state = BAState(
+        R=torch.stack([torch.eye(3, device=dev), res.R]),
+        t=torch.stack([torch.zeros(3, device=dev), res.t]),
+        points=torch.where(res.inliers[:, None], res.points3d, 1.0))
+    out, _ = run_lm(state, prob, n_iters=n_iters)
+    R = out.R[1]
+    t = out.t[1]
+    return R, t / torch.clamp(torch.linalg.norm(t), min=1e-9)
+
+
+@dataclasses.dataclass
+class FrameState:
+    index: int
+    R: np.ndarray          # world->cam
+    t: np.ndarray
+    n_inliers: int
+    is_keyframe: bool
+
+
+class SlamPipeline:
+    """`device="cuda"` runs the frontend's kernels and the geometry on the
+    card and raises if there is none; `device="cpu"` runs the plain
+    PyTorch versions.  RANSAC draws from one torch.Generator on the
+    device, seeded with `seed`; `process(image, raw=...)` replaces a
+    frame's draw."""
+
+    def __init__(self, cfg: SurfConfig | None = None,
+                 intrinsics: Intrinsics | None = None,
+                 ratio: float = 0.95, min_inliers: int = 30,
+                 keyframe_min_inlier_frac: float = 0.5,
+                 ba_refine: bool = False, ba_iters: int = 5,
+                 window_ba: int = 0, seed: int = 0, device="cuda"):
+        self.device = require_device(device, "SlamPipeline")
+        self.seed = seed
+        self.cfg = cfg if cfg is not None else SurfConfig(
+            max_pts=2048, candidates_per_octave=2048)
+        self.surf = Surf(self.cfg, device=self.device)
+        self.intr = intrinsics
+        self.ratio = ratio
+        self.min_inliers = min_inliers
+        self.kf_frac = keyframe_min_inlier_frac
+        self.ba_refine = ba_refine
+        self.ba_iters = ba_iters
+        self.window_ba = window_ba
+        self.map = None
+        self.frame_depths = []
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.frames: List[FrameState] = []
+        self._prev = None          # (kps, desc)
+        self._prev_depth = None    # median depth of last pair's landmarks
+        self._prev_kp_depth = None  # (slots,) global-unit depths on the
+        #                             previous frame's keypoint slots
+
+    def reset(self):
+        self.frames.clear()
+        self._prev = None
+        self._prev_depth = None
+        self._prev_kp_depth = None
+        self.frame_depths = []
+        self.map = None
+
+    def process(self, image, raw: torch.Tensor | None = None) -> FrameState:
+        """One frame, uint8 (H, W).  `raw` replaces this frame's RANSAC
+        draw (see geometry.epipolar.ransac_essential); the first frame
+        draws nothing."""
+        h, w = image.shape
+        if self.intr is None:
+            self.intr = default_intrinsics(h, w)
+        kps, desc = self.surf.detect_and_compute(image)
+        if self._prev is None:
+            st = FrameState(0, np.eye(3), np.zeros(3), 0, True)
+            self.frames.append(st)
+            self._prev = (kps, desc)
+            if self.window_ba:
+                self.map = KeyframeMap(self.intr, window=self.window_ba,
+                                       device=self.device)
+                self.map.add_keyframe(kps, st.R, st.t)
+            self.frame_depths.append(1.0)
+            return st
+
+        kp1, d1 = self._prev
+        res = track_pair(kp1, d1, kps, desc, self.intr, self.generator,
+                         ratio=self.ratio, raw=raw)
+        n_inl = int(res.n_inliers)
+        if self.ba_refine and n_inl >= self.min_inliers:
+            R_ref, t_ref = _refine_pair(res, kp1, self.intr,
+                                        n_iters=self.ba_iters)
+            R_rel = _np(R_ref).astype(np.float64)
+            t_rel = _np(t_ref).astype(np.float64)
+        else:
+            R_rel = _np(res.R).astype(np.float64)
+            t_rel = _np(res.t).astype(np.float64)
+
+        # Monocular scale propagation.  Preferred: per-point depth ratio
+        # over the physical points shared by consecutive pairs (pair
+        # (k-2, k-1) left global-unit depths on frame k-1's keypoint slots;
+        # pair (k-1, k) re-triangulates the same slots in its own unit).
+        # Fallback (too few shared points): the whole-pair median-depth
+        # ratio.  Cheirality-consistent inliers only: one negative median
+        # would flip the propagated scale sign for the rest of the sequence.
+        inl = _np(res.inliers)
+        X3 = _np(res.points3d)
+        z1 = X3[:, 2]                       # depth in cam_{k-1}, pair units
+        z2 = X3 @ _np(res.R).astype(np.float64)[2] + float(res.t[2])
+        pos = inl & (z1 > 1e-9) & (z2 > 1e-9)
+        med_loc = float(np.median(z1[pos])) if pos.any() else 1.0
+        scale = 1.0
+        d_prev = self._prev_kp_depth
+        shared = (pos & np.isfinite(d_prev)) if d_prev is not None else None
+        if shared is not None and shared.sum() >= 6:
+            scale = float(np.median(d_prev[shared] / z1[shared]))
+        elif self._prev_depth is not None and med_loc > 1e-6:
+            scale = self._prev_depth / med_loc
+        # fd[k]: the median scene depth seen from camera k, in chain-gauge
+        # units (what the Sim(3) loop edges divide by); the first pair
+        # also backfills fd[0]
+        med_depth = (float(np.median(z2[pos])) if pos.any() else 1.0) * scale
+
+        prev = self.frames[-1]
+        if n_inl < self.min_inliers:
+            # tracking failure: keep the previous pose (constant model) and
+            # leave the scale chain at the last good pair's value
+            self._prev_kp_depth = None
+            R_w, t_w = prev.R, prev.t
+        else:
+            if len(self.frames) == 1 and pos.any():
+                self.frame_depths[0] = med_loc * scale
+            self._prev_depth = med_depth
+            # global-unit depths on the CURRENT frame's matched slots
+            idx = _np(res.matches.index)
+            d_cur = np.full(int(kps.x.shape[0]), np.nan)
+            ok = pos & (idx >= 0) & (idx < d_cur.shape[0])
+            d_cur[idx[ok]] = scale * z2[ok]
+            self._prev_kp_depth = d_cur
+            R_w = R_rel @ prev.R
+            t_w = R_rel @ prev.t + scale * t_rel
+        is_kf = n_inl < self.kf_frac * max(int(kp1.count), 1)
+        st = FrameState(len(self.frames), R_w, t_w, n_inl, is_kf)
+        self.frames.append(st)
+        if self.map is not None:
+            self.map.add_keyframe(kps, st.R, st.t,
+                                  match_index=res.matches.index,
+                                  match_ok=res.inliers)
+            cost = self.map.refine_window()
+            if cost is not None:
+                # write refined window poses back into the trajectory
+                for kf in self.map.keyframes[-self.map.window:]:
+                    self.frames[kf.index] = dataclasses.replace(
+                        self.frames[kf.index], R=kf.R, t=kf.t)
+                st = self.frames[-1]
+        self.frame_depths.append(self._prev_depth or 1.0)
+        self._prev = (kps, desc)
+        return st
