@@ -27,6 +27,7 @@ from .ops.fused_detect import fused_pyramid
 from .ops.descriptor import describe
 from .ops.matcher import match_keypoints
 from .ops.orientation import assign_orientations
+from .utils.timing import span
 
 
 def _make_keypoints(ii, cand, cfg: SurfConfig):
@@ -91,22 +92,28 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
     """uint8 (H, W) tensor -> (Keypoints, (max_pts, nfeatures)
     descriptors), on the image's device."""
     h, w = image.shape
-    ii = integral_image(image, cfg.doubled)
-    pyr, masks = fused_pyramid(ii, cfg, h, w)
-    cand = detect(pyr, cfg.hessian_schedule(h, w), cfg, cand_masks=masks)
-    count, valid, x, y, scale, strength, laplace, octave = \
-        _make_keypoints(ii, cand, cfg)
+    with span("surf.integral"):
+        ii = integral_image(image, cfg.doubled)
+    with span("surf.pyramid"):
+        pyr, masks = fused_pyramid(ii, cfg, h, w)
+    with span("surf.detect"):
+        cand = detect(pyr, cfg.hessian_schedule(h, w), cfg, cand_masks=masks)
+    with span("surf.makepoint"):
+        count, valid, x, y, scale, strength, laplace, octave = \
+            _make_keypoints(ii, cand, cfg)
     ori = torch.zeros_like(x)
     if compute_descriptors and not cfg.upright:
-        ori = assign_orientations(ii, cfg, x, y, scale, valid)  # 0 if invalid
+        with span("surf.orient"):     # 0 where invalid
+            ori = assign_orientations(ii, cfg, x, y, scale, valid)
     kps = Keypoints(x=x, y=y, scale=scale, strength=strength,
                     laplace=laplace, ori=ori, octave=octave,
                     valid=valid, count=count)
     if not compute_descriptors:
         return kps, torch.zeros((cfg.max_pts, cfg.nfeatures),
                                 dtype=torch.float32, device=image.device)
-    desc = describe(ii, cfg, x, y, scale, ori, valid)
-    desc = torch.where(valid[:, None], desc, 0.0)
+    with span("surf.describe"):
+        desc = describe(ii, cfg, x, y, scale, ori, valid)
+        desc = torch.where(valid[:, None], desc, 0.0)
     return kps, desc
 
 
@@ -155,13 +162,17 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
                 torch.stack(descs))
 
     dev = images.device
-    ii = torch.stack([integral_image(im, cfg.doubled) for im in images])
-    pyr_b, mask_b = fused_pyramid(ii, cfg, h, w)
-    cand = detect(pyr_b, cfg.hessian_schedule(h, w), cfg, cand_masks=mask_b,
-                  nframes=B)
-    _, valid_u, *fields, fid = _make_keypoints(ii, cand, cfg)
-    count, valid, x, y, scale, strength, laplace, octave = _spread_frames(
-        valid_u, fid, fields, B, cfg.max_pts)
+    with span("surf.integral"):
+        ii = torch.stack([integral_image(im, cfg.doubled) for im in images])
+    with span("surf.pyramid"):
+        pyr_b, mask_b = fused_pyramid(ii, cfg, h, w)
+    with span("surf.detect"):
+        cand = detect(pyr_b, cfg.hessian_schedule(h, w), cfg,
+                      cand_masks=mask_b, nframes=B)
+    with span("surf.makepoint"):
+        _, valid_u, *fields, fid = _make_keypoints(ii, cand, cfg)
+        count, valid, x, y, scale, strength, laplace, octave = \
+            _spread_frames(valid_u, fid, fields, B, cfg.max_pts)
 
     kps = Keypoints(x=x, y=y, scale=scale, strength=strength,
                     laplace=laplace, ori=torch.zeros_like(x), octave=octave,
@@ -170,11 +181,12 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
         return kps, torch.zeros((B, cfg.max_pts, cfg.nfeatures),
                                 dtype=torch.float32, device=dev)
     flat = lambda a: a.reshape(-1)
-    frame = torch.arange(B, dtype=torch.int32,
-                         device=dev).repeat_interleave(cfg.max_pts)
-    desc = describe(ii, cfg, flat(x), flat(y), flat(scale),
-                    torch.zeros_like(flat(x)), flat(valid), frame=frame)
-    desc = torch.where(flat(valid)[:, None], desc, 0.0)
+    with span("surf.describe"):
+        frame = torch.arange(B, dtype=torch.int32,
+                             device=dev).repeat_interleave(cfg.max_pts)
+        desc = describe(ii, cfg, flat(x), flat(y), flat(scale),
+                        torch.zeros_like(flat(x)), flat(valid), frame=frame)
+        desc = torch.where(flat(valid)[:, None], desc, 0.0)
     return kps, desc.reshape(B, cfg.max_pts, cfg.nfeatures)
 
 

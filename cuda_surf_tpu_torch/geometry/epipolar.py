@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import span
+
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -307,7 +309,8 @@ def hypotheses(x1, x2, sample, solver: str):
                               device=Es.device)
     from .fivepoint import five_point
     # gn_iters=4, as the reference passes (its comment says 2)
-    Es, cand_ok = five_point(x1[sample], x2[sample], gn_iters=4)
+    with span("vo.fivepoint"):
+        Es, cand_ok = five_point(x1[sample], x2[sample], gn_iters=4)
     return Es.reshape(-1, 3, 3), cand_ok.reshape(-1)
 
 
@@ -352,11 +355,13 @@ def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
                          f"columns, the {solver} solver draws {n_pts}")
     sample = sample_rows(valid, raw.to(x1.device))
     Es, cand_ok = hypotheses(x1, x2, sample, solver)
-    counts = _sampson_inlier_counts(Es, x1, x2, valid, inlier_thresh)
+    with span("vo.score"):
+        counts = _sampson_inlier_counts(Es, x1, x2, valid, inlier_thresh)
     scores = torch.where(cand_ok, counts, -1)
-    E, inliers = refit(_take(Es, torch.argmax(scores)), x1, x2, valid,
-                       inlier_thresh)
-    R, t, X = recover_pose(E, x1, x2, inliers)
+    with span("vo.refit"):
+        E, inliers = refit(_take(Es, torch.argmax(scores)), x1, x2, valid,
+                           inlier_thresh)
+        R, t, X = recover_pose(E, x1, x2, inliers)
     return TwoViewResult(E=E, R=R, t=t, inliers=inliers,
                          n_inliers=inliers.sum(dtype=torch.int32),
                          points3d=X)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Keypoints, Matches
+from ..utils.timing import span
 from .matcher_kernel import NEG, _best2_plain, fused_best2
 
 
@@ -47,13 +48,15 @@ def match_keypoints(kp1: Keypoints, desc1: torch.Tensor,
     With `cross_check`, matches that are not mutual nearest neighbours
     are marked invalid, from one extra masked argmax over the same score
     matrix."""
-    if not cross_check:
-        best, second, index = fused_best2(desc1, desc2, kp2.valid)
-        return _matches(best, second, index, kp1.valid, kp2.x, kp2.y)
-    scores = torch.matmul(desc1, desc2.T)
-    m = match(desc1, kp1.valid, desc2, kp2.valid, kp2.x, kp2.y, scores=scores)
-    scores = torch.where(kp1.valid[:, None], scores, NEG)
-    back = torch.argmax(scores, dim=0).to(torch.int32)      # (N2,)
-    mutual = back[m.index.long()] == torch.arange(
-        m.index.shape[0], dtype=torch.int32, device=back.device)
-    return m._replace(valid=m.valid & mutual)
+    with span("surf.match"):
+        if not cross_check:
+            best, second, index = fused_best2(desc1, desc2, kp2.valid)
+            return _matches(best, second, index, kp1.valid, kp2.x, kp2.y)
+        scores = torch.matmul(desc1, desc2.T)
+        m = match(desc1, kp1.valid, desc2, kp2.valid, kp2.x, kp2.y,
+                  scores=scores)
+        scores = torch.where(kp1.valid[:, None], scores, NEG)
+        back = torch.argmax(scores, dim=0).to(torch.int32)      # (N2,)
+        mutual = back[m.index.long()] == torch.arange(
+            m.index.shape[0], dtype=torch.int32, device=back.device)
+        return m._replace(valid=m.valid & mutual)

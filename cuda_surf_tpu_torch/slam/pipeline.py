@@ -27,6 +27,7 @@ from ..frontend import Surf, require_device
 from ..geometry.epipolar import normalize_with_intrinsics
 from ..io.synth import Intrinsics
 from ..utils.metrics import MetricsLogger
+from ..utils.timing import span
 from .loopclosure import LoopDetector, optimize_with_loops
 from .mapping import KeyframeMap
 from .sim3graph import optimize_with_loops_sim3
@@ -135,6 +136,10 @@ class SlamPipeline:
         draw (see geometry.epipolar.ransac_essential); the first frame
         draws nothing.  `loop_raws` maps an earlier frame i to the draw of
         the loop verification of (i, this frame)."""
+        with span("vo.process"):
+            return self._process(image, raw, loop_raws)
+
+    def _process(self, image, raw, loop_raws) -> FrameState:
         h, w = image.shape
         if self.intr is None:
             self.intr = default_intrinsics(h, w)
@@ -144,9 +149,10 @@ class SlamPipeline:
             self.frames.append(st)
             self._prev = (kps, desc)
             if self.window_ba:
-                self.map = KeyframeMap(self.intr, window=self.window_ba,
-                                       device=self.device)
-                self.map.add_keyframe(kps, st.R, st.t)
+                with span("vo.window_ba"):
+                    self.map = KeyframeMap(self.intr, window=self.window_ba,
+                                           device=self.device)
+                    self.map.add_keyframe(kps, st.R, st.t)
             if self.loop_detect:
                 self._detector = LoopDetector(self.intr,
                                               min_gap=self.loop_min_gap,
@@ -158,75 +164,82 @@ class SlamPipeline:
             return st
 
         kp1, d1 = self._prev
-        res = track_pair(kp1, d1, kps, desc, self.intr, self.generator,
-                         ratio=self.ratio, raw=raw)
-        n_inl = int(res.n_inliers)
-        if self.ba_refine and n_inl >= self.min_inliers:
-            R_ref, t_ref = _refine_pair(res, kp1, self.intr,
-                                        n_iters=self.ba_iters)
-            R_rel = _np(R_ref).astype(np.float64)
-            t_rel = _np(t_ref).astype(np.float64)
-        else:
-            R_rel = _np(res.R).astype(np.float64)
-            t_rel = _np(res.t).astype(np.float64)
+        # called through the module's global: a caller may wrap it
+        with span("vo.track"):
+            res = track_pair(kp1, d1, kps, desc, self.intr, self.generator,
+                             ratio=self.ratio, raw=raw)
+        with span("vo.scale"):
+            n_inl = int(res.n_inliers)
+            if self.ba_refine and n_inl >= self.min_inliers:
+                R_ref, t_ref = _refine_pair(res, kp1, self.intr,
+                                            n_iters=self.ba_iters)
+                R_rel = _np(R_ref).astype(np.float64)
+                t_rel = _np(t_ref).astype(np.float64)
+            else:
+                R_rel = _np(res.R).astype(np.float64)
+                t_rel = _np(res.t).astype(np.float64)
 
-        # Monocular scale propagation.  Preferred: per-point depth ratio
-        # over the physical points shared by consecutive pairs (pair
-        # (k-2, k-1) left global-unit depths on frame k-1's keypoint slots;
-        # pair (k-1, k) re-triangulates the same slots in its own unit).
-        # Fallback (too few shared points): the whole-pair median-depth
-        # ratio.  Cheirality-consistent inliers only: one negative median
-        # would flip the propagated scale sign for the rest of the sequence.
-        inl = _np(res.inliers)
-        X3 = _np(res.points3d)
-        z1 = X3[:, 2]                       # depth in cam_{k-1}, pair units
-        z2 = X3 @ _np(res.R).astype(np.float64)[2] + float(res.t[2])
-        pos = inl & (z1 > 1e-9) & (z2 > 1e-9)
-        med_loc = float(np.median(z1[pos])) if pos.any() else 1.0
-        scale = 1.0
-        d_prev = self._prev_kp_depth
-        shared = (pos & np.isfinite(d_prev)) if d_prev is not None else None
-        if shared is not None and shared.sum() >= 6:
-            scale = float(np.median(d_prev[shared] / z1[shared]))
-        elif self._prev_depth is not None and med_loc > 1e-6:
-            scale = self._prev_depth / med_loc
-        # fd[k]: the median scene depth seen from camera k, in chain-gauge
-        # units (what the Sim(3) loop edges divide by); the first pair
-        # also backfills fd[0]
-        med_depth = (float(np.median(z2[pos])) if pos.any() else 1.0) * scale
+            # Monocular scale propagation.  Preferred: per-point depth
+            # ratio over the physical points shared by consecutive pairs
+            # (pair (k-2, k-1) left global-unit depths on frame k-1's
+            # keypoint slots; pair (k-1, k) re-triangulates the same slots
+            # in its own unit).  Fallback (too few shared points): the
+            # whole-pair median-depth ratio.  Cheirality-consistent inliers
+            # only: one negative median would flip the propagated scale
+            # sign for the rest of the sequence.
+            inl = _np(res.inliers)
+            X3 = _np(res.points3d)
+            z1 = X3[:, 2]                   # depth in cam_{k-1}, pair units
+            z2 = X3 @ _np(res.R).astype(np.float64)[2] + float(res.t[2])
+            pos = inl & (z1 > 1e-9) & (z2 > 1e-9)
+            med_loc = float(np.median(z1[pos])) if pos.any() else 1.0
+            scale = 1.0
+            d_prev = self._prev_kp_depth
+            shared = ((pos & np.isfinite(d_prev)) if d_prev is not None
+                      else None)
+            if shared is not None and shared.sum() >= 6:
+                scale = float(np.median(d_prev[shared] / z1[shared]))
+            elif self._prev_depth is not None and med_loc > 1e-6:
+                scale = self._prev_depth / med_loc
+            # fd[k]: the median scene depth seen from camera k, in
+            # chain-gauge units (what the Sim(3) loop edges divide by); the
+            # first pair also backfills fd[0]
+            med_depth = ((float(np.median(z2[pos])) if pos.any() else 1.0)
+                         * scale)
 
-        prev = self.frames[-1]
-        if n_inl < self.min_inliers:
-            # tracking failure: keep the previous pose (constant model) and
-            # leave the scale chain at the last good pair's value
-            self._prev_kp_depth = None
-            R_w, t_w = prev.R, prev.t
-        else:
-            if len(self.frames) == 1 and pos.any():
-                self.frame_depths[0] = med_loc * scale
-            self._prev_depth = med_depth
-            # global-unit depths on the CURRENT frame's matched slots
-            idx = _np(res.matches.index)
-            d_cur = np.full(int(kps.x.shape[0]), np.nan)
-            ok = pos & (idx >= 0) & (idx < d_cur.shape[0])
-            d_cur[idx[ok]] = scale * z2[ok]
-            self._prev_kp_depth = d_cur
-            R_w = R_rel @ prev.R
-            t_w = R_rel @ prev.t + scale * t_rel
-        is_kf = n_inl < self.kf_frac * max(int(kp1.count), 1)
-        st = FrameState(len(self.frames), R_w, t_w, n_inl, is_kf)
-        self.frames.append(st)
+            prev = self.frames[-1]
+            if n_inl < self.min_inliers:
+                # tracking failure: keep the previous pose (constant model)
+                # and leave the scale chain at the last good pair's value
+                self._prev_kp_depth = None
+                R_w, t_w = prev.R, prev.t
+            else:
+                if len(self.frames) == 1 and pos.any():
+                    self.frame_depths[0] = med_loc * scale
+                self._prev_depth = med_depth
+                # global-unit depths on the CURRENT frame's matched slots
+                idx = _np(res.matches.index)
+                d_cur = np.full(int(kps.x.shape[0]), np.nan)
+                ok = pos & (idx >= 0) & (idx < d_cur.shape[0])
+                d_cur[idx[ok]] = scale * z2[ok]
+                self._prev_kp_depth = d_cur
+                R_w = R_rel @ prev.R
+                t_w = R_rel @ prev.t + scale * t_rel
+            is_kf = n_inl < self.kf_frac * max(int(kp1.count), 1)
+            st = FrameState(len(self.frames), R_w, t_w, n_inl, is_kf)
+            self.frames.append(st)
         if self.map is not None:
-            self.map.add_keyframe(kps, st.R, st.t,
-                                  match_index=res.matches.index,
-                                  match_ok=res.inliers)
-            cost = self.map.refine_window()
-            if cost is not None:
-                # write refined window poses back into the trajectory
-                for kf in self.map.keyframes[-self.map.window:]:
-                    self.frames[kf.index] = dataclasses.replace(
-                        self.frames[kf.index], R=kf.R, t=kf.t)
-                st = self.frames[-1]
+            with span("vo.window_ba"):
+                self.map.add_keyframe(kps, st.R, st.t,
+                                      match_index=res.matches.index,
+                                      match_ok=res.inliers)
+                cost = self.map.refine_window()
+                if cost is not None:
+                    # write refined window poses back into the trajectory
+                    for kf in self.map.keyframes[-self.map.window:]:
+                        self.frames[kf.index] = dataclasses.replace(
+                            self.frames[kf.index], R=kf.R, t=kf.t)
+                    st = self.frames[-1]
         self.frame_depths.append(self._prev_depth or 1.0)
         if self._detector is not None:
             self._detector.add(kps, desc)

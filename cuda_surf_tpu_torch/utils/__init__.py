@@ -1,4 +1,4 @@
 from .metrics import MetricsLogger
-from .timing import Timer, benchmark, trace
+from .timing import SPANS, Timer, benchmark, span
 
-__all__ = ["MetricsLogger", "Timer", "benchmark", "trace"]
+__all__ = ["MetricsLogger", "SPANS", "Timer", "benchmark", "span"]

@@ -2,8 +2,8 @@
 
 The analogue of the reference's cpuTimer / GpuTimer (cuda_utils.h:71-108):
 a host-clock timer that synchronises the card at both ends, a benchmark
-loop timed with CUDA events (host clock on the CPU), and a named profiler
-scope for torch.profiler traces.
+loop timed with CUDA events (host clock on the CPU), and the named stage
+spans that a torch.profiler trace shows beside the kernels.
 """
 
 from __future__ import annotations
@@ -12,6 +12,21 @@ import contextlib
 import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+# Every stage span of the program, by name.  A span opens where its
+# stage's work is queued: the device operations it launches, the host
+# syncs it makes and the idle time of the device while it runs belong to
+# it in a trace.
+SPANS = (
+    "surf.integral", "surf.pyramid", "surf.detect", "surf.makepoint",
+    "surf.orient", "surf.describe", "surf.match",
+    "vo.process", "vo.track", "vo.fivepoint", "vo.score", "vo.refit",
+    "vo.scale", "vo.window_ba",
+)
+
+_OFF = contextlib.nullcontext()
 
 
 def _sync() -> None:
@@ -61,8 +76,18 @@ def benchmark(fn, *args, iters: int = 100, warmup: int = 3,
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-@contextlib.contextmanager
-def trace(name: str):
-    """Named profiler scope (seen in a torch.profiler trace)."""
-    with torch.profiler.record_function(name):
-        yield
+def span(name: str):
+    """The stage span `name` (a member of SPANS) as a context manager.
+
+    With no torch profiler recording it is one shared no-op: the check
+    costs a call and adds no host read, sync or device operation.  Under
+    `torch.profiler.profile` it is a range named `name` on the profiler's
+    clock, recorded as an operator (the FUNCTION scope of
+    `_RecordFunctionFast`), so that no `gpu_user_annotation` range joins
+    the device's events, as one does for `record_function`'s user scope:
+    a trace's device operations stay the kernels and copies alone."""
+    if not _profiler_enabled():
+        return _OFF
+    if name not in SPANS:
+        raise ValueError(f"span {name!r} is not one of timing.SPANS")
+    return _RecordFunctionFast(name)

@@ -26,7 +26,7 @@ from cuda_surf_tpu_torch.io import image, native, synth
 from cuda_surf_tpu_torch.parallel.elastic import Heartbeat
 from cuda_surf_tpu_torch.slam import SlamPipeline, run_sequence, sequence
 from cuda_surf_tpu_torch.slam import demo as slam_demo
-from cuda_surf_tpu_torch.utils import Timer, benchmark, trace
+from cuda_surf_tpu_torch.utils import Timer, benchmark, span
 from torch_parity import one_torch_thread  # noqa: F401
 
 
@@ -186,7 +186,7 @@ def test_demo_cli_cpu(tmp_path, capsys):
                            "--max-pts", "256", "--device", "cpu"])
     assert "ms/frame over 2 iterations" in capsys.readouterr().out
     with Timer() as t:
-        with trace("cpu work"):
+        with span("surf.detect"):
             benchmark(lambda: np.ones(4).sum(), iters=3, device="cpu")
     assert t.elapsed_ms > 0
 
