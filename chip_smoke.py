@@ -36,7 +36,11 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      geometry's angles those of the twin on orient_geometry, within 1e-4 rad
      wherever the top-two window gap is >= 1e-5 relative, one of the two
      top windows below that; B, D and the step kernel bit-identical across
-     two launches; A, D and B again at the doubled frame's size);
+     two launches; A, D and B again at the doubled frame's size; E, the
+     five-point solver, on the 64 JAX draws of golden_terrain_track.npz,
+     128 hypotheses a call as track_pair makes it: `valid` equal on every
+     slot and every valid candidate within 1e-4 of the twin's, the share
+     equal bit for bit reported);
   4. for each path, resets the launch counters, runs it, checks that every
      kernel of the path launched (kernel A once per frame on the pair
      paths, once per batch on the batch path) and no other did, and holds
@@ -64,7 +68,8 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      - `track`: Surf + track_pair (5-point RANSAC) on frames 0 and 1 of the
        50-frame terrain orbit at 1280x960, stored in the fixture
        golden_terrain_track.npz with the JAX run's draw (`raw`) and result;
-       launches A 2, B 2, C 1, D 0, keypoint counts equal, pose finite,
+       launches A 2, B 2, C 1, E 1, D 0, keypoint counts equal, pose
+       finite,
        the good matches equal, the best score within 1 %, and the refits
        and the pose from the JAX run's winning hypothesis at inliers within
        2 %, rotation within 0.1 degree, t's direction within 1 degree.  On
@@ -96,7 +101,8 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        draws within 2 % of JAX's inliers, at most VO_FAIL_RATE of the frames
        at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
        plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1 a frame
-       and C 1 a frame after the first; `vo_frame_ms` on the host clock;
+       and C 1, E 1 a frame after the first; `vo_frame_ms` on the host
+       clock;
   7. drives the SLAM backend, each phase with its launch counts reset
      before and read after it:
      - `posegraph`: the SE(3) circle graph of tests/test_posegraph.py at
@@ -112,7 +118,8 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      - `loops`: SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO
        cell's 12 frames at seeds 0-7 on the JAX pipeline's key stream and
        the JAX detector's draw of every pair (golden_terrain_loops.npz):
-       launches A 1, B 1 a frame, C 1 a tracked pair plus 1 a verification;
+       launches A 1, B 1 a frame, C and E 1 a tracked pair plus 1 a
+       verification;
        the verified pairs JAX's; the verdicts JAX's wherever JAX's inliers
        lie more than 10 % from 60; optimize_with_loops[_sim3] on JAX's own
        frames, closures and depths at PG_TOL; per run the JAX test's ATE
@@ -186,6 +193,8 @@ from cuda_surf_tpu_torch.io import (MAIN_PAIR, TERRAIN_TRACK, TERRAIN_VO,
                                     render_terrain_sequence, write_pgm)
 from cuda_surf_tpu_torch.io.synth import ba_problem
 from cuda_surf_tpu_torch.geometry import epipolar
+from cuda_surf_tpu_torch.geometry.fivepoint import (_five_point_plain,
+                                                  five_point)
 from cuda_surf_tpu_torch.slam import (LoopClosure, ate_rmse,
                                       optimize_with_loops,
                                       optimize_with_loops_sim3, posegraph,
@@ -268,6 +277,13 @@ B_OPS_WINDOW = {True: 8, False: 12}
 B_OPS_LIVE = {"upright64": 51, "rotated64": 59, "upright128": 75,
               "rotated128": 83}
 D_OPS_LIVE, D_OPS_WINDOWS = 53, 72 * 36
+# kernel E per hypothesis, counted from the twin's expressions: 20 roots x
+# 96 Durand-Kerner rounds of ~150 operations (ten complex differences and
+# their product, a Horner chain of ten complex multiply-adds, a complex
+# division, the step's clamp), 20 candidates x ~1,100 a Gauss-Newton step
+# (80 monomial terms, 40 products of 20, the 3x3 normal equations) and
+# ~10,000 for the constraint matrix, the 10x10 solve and det B(z)
+E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
 
 
 def emit(obj) -> None:
@@ -809,6 +825,48 @@ def c_against_twin(name, out, twin):
     return err, int(clear.sum())
 
 
+def check_kernel_e(card):
+    """Kernel E vs the twin on the 64 JAX draws of the track fixture (128
+    hypotheses a call, gn_iters=4, as track_pair calls it): the share of
+    candidates equal bit for bit, `valid` equal, the largest distance up to
+    sign; then E beside the twin on the first draw, and E's own time."""
+    g = np.load(os.path.join(DATA, GOLDEN["track"]))
+    intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
+    surf = Surf(SurfConfig(**MAIN_CONFIG), device="cuda")
+    (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
+    _, good, x1, x2 = track_inputs(k1, d1, k2, d2, intr)
+    samples = [epipolar.sample_rows(good, torch.as_tensor(r).cuda())
+               for r in g["raws"]]
+    exact = valid_eq = n = 0
+    err = 0.0
+    for sample in samples:
+        (Ek, vk), (Ep, vp) = (fn(x1[sample], x2[sample], gn_iters=4)
+                              for fn in (five_point, _five_point_plain))
+        both = vk & vp
+        exact += int(((Ek == Ep).all(-1).all(-1) & both).sum())
+        valid_eq += int((vk == vp).sum())
+        n += int(both.sum())
+        dist = torch.minimum((Ek - Ep).flatten(-2).norm(dim=-1),
+                             (Ek + Ep).flatten(-2).norm(dim=-1))
+        err = max(err, float(torch.where(both, dist, 0.0).max()))
+    slots = len(samples) * samples[0].shape[0] * 20
+    if valid_eq != slots or err > 1e-4:
+        raise AssertionError(f"kernel E: valid equal on {valid_eq} of "
+                             f"{slots} slots, distance up to {err}")
+    s1, s2 = x1[samples[0]], x2[samples[0]]
+    run = lambda: five_point(s1, s2, gn_iters=4)
+    twin = lambda: _five_point_plain(s1, s2, gn_iters=4)
+    ms_k, ms_p = time_pair(run, twin, SLOW)
+    h = s1.shape[0]
+    bnd = bound(nbytes(s1, s2, *run()),
+                h * (E_OPS_DK + 4 * E_OPS_GN_STEP + E_OPS_MATRICES))
+    emit(dict(phase="kernel_check", kernel="E", draws=len(samples),
+              hypotheses=h, valid_candidates=n, bit_equal=exact,
+              valid_equal_slots=valid_eq, max_abs_err=err, card=card))
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bit_equal=exact,
+                valid_candidates=n, **own_time(run, bnd))
+
+
 def check_kernel_c(d1, d2, valid2):
     """Kernel C vs matcher_kernel._best2_plain at 4096 x 4096 x D."""
     if torch.backends.cuda.matmul.allow_tf32:
@@ -908,7 +966,8 @@ def load_golden(name, config):
 
 
 KERNELS = {"A": fused_pyramid, "B": single_rows, "B_stacked": stacked_rows,
-           "B_step": step_rows, "C": fused_best2, "D": assign_orientations}
+           "B_step": step_rows, "C": fused_best2, "D": assign_orientations,
+           "E": five_point}
 
 
 def reset_counts():
@@ -1102,7 +1161,7 @@ def run_track_path(card):
     reset_counts()
     (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
     res = track_pair(k1, d1, k2, d2, intr, raw=raw)
-    counts = read_counts("track", {"A": 2, "B": 2, "C": 1})
+    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1})
     kp_counts = [int(k1.count), int(k2.count)]
     if kp_counts != g["counts"].tolist():
         raise AssertionError(f"track: keypoints {kp_counts}, JAX golden "
@@ -1266,10 +1325,12 @@ def run_vo_path(card):
                     frame_ms.append((time.perf_counter() - t0) * 1e3)
                 got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
                 check_launches(f"vo {run} seed {seed} frame {i}", got,
-                               dict(A=1, B=1, **({"C": 1} if i else {})))
+                               dict(A=1, B=1, **({"C": 1, "E": 1} if i
+                                                 else {})))
             total = read_counts(f"vo {run}", {"A": len(frames),
                                               "B": len(frames),
-                                              "C": len(frames) - 1})
+                                              "C": len(frames) - 1,
+                                              "E": len(frames) - 1})
             counts = counts or total
             traj = pipe.trajectory()
             if not np.isfinite(traj).all():
@@ -1293,7 +1354,8 @@ def run_vo_path(card):
                              "plain x 1.15")
     emit(dict(phase="vo_path", frames=len(frames), seeds=list(VO_SEEDS),
               runs=runs, launches_per_frame=dict(
-                  first={"A": 1, "B": 1}, after={"A": 1, "B": 1, "C": 1}),
+                  first={"A": 1, "B": 1},
+                  after={"A": 1, "B": 1, "C": 1, "E": 1}),
               launches=counts))
     emit(dict(metric="vo_frame_ms", value=statistics.median(frame_ms),
               what="SlamPipeline.process, plain, one 200x280 frame of the "
@@ -1496,13 +1558,15 @@ def run_loops_phase(card):
                 pipe._detector.query = timed
             n_ver = pipe._detector.n_verifications - n_ver
             got = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
+            pairs = 1 + n_ver      # the tracked pair and each verification
             check_launches(f"loops seed {seed} frame {f}", got,
-                           dict(A=1, B=1, **({"C": (1 if f else 0) + n_ver}
+                           dict(A=1, B=1, **({"C": pairs, "E": pairs}
                                              if f else {})))
         det = pipe._detector
         total = read_counts(f"loops seed {seed}", {
             "A": len(frames), "B": len(frames),
-            "C": len(frames) - 1 + det.n_verifications})
+            "C": len(frames) - 1 + det.n_verifications,
+            "E": len(frames) - 1 + det.n_verifications})
         counts = counts or total
         jver = [tuple(int(x) for x in v[1:]) for v in g["ver"]
                 if v[0] == seed]
@@ -1560,7 +1624,8 @@ def run_loops_phase(card):
               median_seeds_0_3=med4, jax_median_seeds_0_3=jmed4,
               resume=resume,
               launches_per_frame=dict(first={"A": 1, "B": 1}, after={
-                  "A": 1, "B": 1, "C": "1 + the frame's verifications"}),
+                  "A": 1, "B": 1, "C": "1 + the frame's verifications",
+                  "E": "1 + the frame's verifications"}),
               launches=counts))
     emit(dict(metric="slam_loop_frame_ms", value=statistics.median(frame_ms),
               what="SlamPipeline.process with loop detection, one 200x280 "
@@ -2182,6 +2247,7 @@ def main() -> int:
     emit(dict(metric="match_ms", value=time_ms(match),
               wall_ms=time_wall_ms(match), what="4096 x 4096 left->right "
               "match", card=card))
+    res["E"] = check_kernel_e(card)
     counts["track"] = run_track_path(card)
     run_ba_phase(card)
     counts["vo"] = run_vo_path(card)
@@ -2244,6 +2310,9 @@ def main() -> int:
               "cuda_surf_tpu/ops/matcher_pallas.py:42", None, "main"),
         "D": ("orient", "orient.cu",
               "cuda_surf_tpu/ops/patch_bucketed.py:70", None, "rotated"),
+        "E": ("five_point", "fivepoint.cu",
+              "none: not a port (cuda_surf_tpu/geometry/fivepoint.py is "
+              "XLA-compiled jnp)", None, "track"),
     }
     rows = []
     for k, (name, src, repl, also, path) in meta.items():
@@ -2264,6 +2333,10 @@ def main() -> int:
             row["modes"] = r["modes"]
         if k in ("B", "B_stacked", "B_step"):
             row["body"] = csrc + "describe_body.cuh"
+        if k == "E":
+            row.update(body=csrc + "fivepoint_body.cuh",
+                       bit_equal=r["bit_equal"],
+                       valid_candidates=r["valid_candidates"])
         if k in ("A", "B", "B_stacked", "B_step", "C", "D"):
             # what fits an SM, asked of the built kernels
             row["occupancy"] = {n: v for n, v in occ.items() if n.startswith(

@@ -63,6 +63,8 @@ _SIGNATURES = {
                    _P, _P],
     # D, blocks(out), warps per block(out)
     "surf_best2_occupancy": [_I, _P, _P],
+    # x1, x2, n, gn_iters, Es, valid, stream
+    "surf_fivepoint": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 

@@ -12,14 +12,19 @@ nullspace; then a Gauss-Newton polish on the original cubics.
 
 The algorithm, its fixed iteration counts, clamps and non-finite guards are
 the reference's, so its candidates agree with the JAX package's to float32
-rounding.  It is a chain of small operations: on the GPU it is bound by
-the launches (96 sequential Durand-Kerner rounds), not by the arithmetic.
+rounding.  `five_point` runs kernel E (csrc/fivepoint.cu, one launch a
+call) on a CUDA tensor and the plain twin `_five_point_plain` on a CPU one.
+The twin is a chain of small operations: on the card it would be bound by
+its ~9,900 launches (96 sequential Durand-Kerner rounds), not by the
+arithmetic.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import _build
 
 # Monomial index tables (built once in numpy).
 _LIN = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0)]          # x, y, z, 1
@@ -217,22 +222,8 @@ def _roots_dk(coeffs, n_iters: int = 96):
     radius explodes); the forward pass covers roots near 0.  A candidate
     that is garbage in one pass is a converged root in the other, and
     RANSAC scoring discards the losers."""
+    z, cs = _dk_complex_roots(coeffs, n_iters)
     n = coeffs.shape[-1] - 1
-    ctype = torch.complex64 if coeffs.dtype == torch.float32 \
-        else torch.complex128
-    mag = torch.amax(torch.abs(coeffs), -1, keepdim=True)
-    cs = coeffs / torch.clamp(mag, min=1e-30)
-
-    def monic(c):
-        lead = c[..., 0:1]
-        lead = torch.where(torch.abs(lead) < 1e-20, 1e-20, lead)
-        return (c / lead).to(ctype)
-
-    both = torch.stack([monic(cs), monic(torch.flip(cs, [-1]))], 0)
-    zb = _dk_pass(both, n, n_iters)
-    zf, zw = zb[0], zb[1]
-    zw_safe = torch.where(torch.abs(zw) < 1e-20, 1e-20, zw)
-    z = torch.cat([zf, 1.0 / zw_safe], -1)                  # (..., 2n)
     re, im = z.real, z.imag
     near_real = torch.abs(im) < 1e-2 * (1.0 + torch.abs(re))
 
@@ -250,6 +241,27 @@ def _roots_dk(coeffs, n_iters: int = 96):
         p, dp = horner_d(x)
         x = x - p / torch.where(torch.abs(dp) < 1e-20, 1e-20, dp)
     return x, near_real
+
+
+def _dk_complex_roots(coeffs, n_iters: int = 96):
+    """_roots_dk's two Durand-Kerner passes -> (the 2n complex roots, the
+    max-normalised coefficients)."""
+    n = coeffs.shape[-1] - 1
+    ctype = torch.complex64 if coeffs.dtype == torch.float32 \
+        else torch.complex128
+    mag = torch.amax(torch.abs(coeffs), -1, keepdim=True)
+    cs = coeffs / torch.clamp(mag, min=1e-30)
+
+    def monic(c):
+        lead = c[..., 0:1]
+        lead = torch.where(torch.abs(lead) < 1e-20, 1e-20, lead)
+        return (c / lead).to(ctype)
+
+    both = torch.stack([monic(cs), monic(torch.flip(cs, [-1]))], 0)
+    zb = _dk_pass(both, n, n_iters)
+    zf, zw = zb[0], zb[1]
+    zw_safe = torch.where(torch.abs(zw) < 1e-20, 1e-20, zw)
+    return torch.cat([zf, 1.0 / zw_safe], -1), cs           # (..., 2n)
 
 
 def _eval_poly(p, z):
@@ -318,13 +330,9 @@ def _gn_polish(M, x, y, z, iters: int = 8, lam: float = 1e-10):
     return x, y, z
 
 
-def five_point(x1, x2, gn_iters: int = 8):
-    """Essential matrices from 5 normalised correspondences.
-
-    x1, x2: (..., 5, 2) -> (Es (..., 20, 3, 3), valid (..., 20)): up to 10
-    real solutions in 20 candidate slots (forward and reversed root passes,
-    see _roots_dk); invalid slots hold unit-norm placeholder matrices
-    (score them anyway: they lose)."""
+def _nullspace_basis(x1, x2):
+    """The orthonormalised basis E1..E4 of the 5x9 system's nullspace,
+    (..., 4, 3, 3)."""
     u1, v1 = x1[..., 0], x1[..., 1]
     u2, v2 = x2[..., 0], x2[..., 1]
     one = torch.ones_like(u1)
@@ -341,8 +349,12 @@ def five_point(x1, x2, gn_iters: int = 8):
         n = torch.sqrt(torch.sum(v * v, -1, keepdim=True))
         ortho.append(v / torch.clamp(n, min=1e-20))
     null = torch.stack(ortho, -1)
-    basis = null.transpose(-1, -2).reshape(*null.shape[:-2], 4, 3, 3)
+    return null.transpose(-1, -2).reshape(*null.shape[:-2], 4, 3, 3)
 
+
+def _five_point_plain(x1, x2, gn_iters: int = 8):
+    """Kernel E's plain twin: `five_point` as a chain of torch operations."""
+    basis = _nullspace_basis(x1, x2)
     M = _constraint_matrix(basis)                        # (..., 10, 20)
     rn = torch.amax(torch.abs(M), -1, keepdim=True)
     M = M / torch.clamp(rn, min=1e-30)                   # row equilibration
@@ -393,3 +405,49 @@ def five_point(x1, x2, gn_iters: int = 8):
             / np.sqrt(3.0)).expand(E.shape)
     E = torch.where(fin_E[..., None, None], E, eyeE)
     return E, valid & fin_E
+
+
+def check_kernel_inputs(x1: torch.Tensor, x2: torch.Tensor) -> None:
+    """Raise ValueError unless x1 and x2 are what kernel E takes: float32,
+    contiguous, the same shape (..., 5, 2), on one device."""
+    for name, t in (("x1", x1), ("x2", x2)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"five_point: {name} must be float32, got "
+                             f"{t.dtype}")
+        if t.dim() < 2 or tuple(t.shape[-2:]) != (5, 2):
+            raise ValueError(f"five_point: {name} must be (..., 5, 2), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"five_point: {name} must be contiguous")
+    if x1.shape != x2.shape or x1.device != x2.device:
+        raise ValueError("five_point: x1 and x2 must have one shape and one "
+                         "device")
+
+
+def five_point(x1, x2, gn_iters: int = 8):
+    """Essential matrices from 5 normalised correspondences.
+
+    x1, x2: (..., 5, 2) -> (Es (..., 20, 3, 3), valid (..., 20)): up to 10
+    real solutions in 20 candidate slots (forward and reversed root passes,
+    see _roots_dk); invalid slots hold unit-norm placeholder matrices
+    (score them anyway: they lose).  Kernel E on a CUDA tensor, one launch
+    for every hypothesis of the call; the twin on a CPU one."""
+    if x1.device.type == "cpu":
+        return _five_point_plain(x1, x2, gn_iters)
+    if x1.device.type != "cuda":
+        raise ValueError(f"five_point: unsupported device {x1.device}")
+    check_kernel_inputs(x1, x2)
+    lead = tuple(x1.shape[:-2])
+    n = x1.numel() // 10
+    Es = torch.empty(lead + (20, 3, 3), dtype=torch.float32, device=x1.device)
+    valid = torch.empty(lead + (20,), dtype=torch.bool, device=x1.device)
+    if n:
+        with torch.cuda.device(x1.device):
+            _build.launch("surf_fivepoint", _build.ptr(x1), _build.ptr(x2), n,
+                          int(gn_iters), _build.ptr(Es), _build.ptr(valid),
+                          _build.stream(x1.device))
+        five_point.launches += 1
+    return Es, valid
+
+
+five_point.launches = 0

@@ -30,39 +30,13 @@ to a float64 run as the JAX package's.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cuda_surf_tpu.geometry import fivepoint as jfp
 
 from cuda_surf_tpu_torch.geometry import fivepoint as tfp
-
-
-def _rotmat(axis, angle):
-    axis = np.asarray(axis, np.float64)
-    axis = axis / np.linalg.norm(axis)
-    K = np.array([[0, -axis[2], axis[1]],
-                  [axis[2], 0, -axis[0]],
-                  [-axis[1], axis[0], 0]])
-    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
-
-
-def minimal_problems(seed, n):
-    """n five-point problems as tests/test_geometry.py draws them ->
-    (x1 (n, 5, 2), x2 (n, 5, 2) float32, unit-norm true E (n, 3, 3))."""
-    rng = np.random.default_rng(seed)
-    x1s, x2s, Es = [], [], []
-    for _ in range(n):
-        R = _rotmat(rng.normal(size=3), rng.uniform(0.05, 0.6))
-        t = rng.normal(size=3)
-        t /= np.linalg.norm(t)
-        X = rng.uniform(-1, 1, (5, 3)) + np.array([0, 0, 4.0])
-        Xc2 = X @ R.T + t
-        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
-        x1s.append(X[:, :2] / X[:, 2:])
-        x2s.append(Xc2[:, :2] / Xc2[:, 2:])
-        Es.append(tx @ R / np.linalg.norm(tx @ R))
-    f32 = lambda a: np.asarray(a, np.float32)
-    return f32(x1s), f32(x2s), np.asarray(Es)
+from torch_parity import minimal_problems
 
 
 def _sign_dist(Es, E):
@@ -198,3 +172,27 @@ def test_five_point_batched_shapes():
     assert torch.isfinite(Es).all()
     n = torch.linalg.norm(Es.reshape(6, 20, -1), dim=-1)
     torch.testing.assert_close(n, torch.ones_like(n), atol=1e-3, rtol=0)
+
+
+def test_five_point_on_the_cpu_is_the_twin():
+    """On a CPU tensor `five_point` is the plain twin, bit for bit, and
+    launches nothing; `check_kernel_inputs`, which the card path runs
+    before kernel E, refuses float64, a trailing shape other than (5, 2)
+    and a non-contiguous input."""
+    x1, x2, _ = minimal_problems(3, 16)
+    t1, t2 = torch.as_tensor(x1), torch.as_tensor(x2)
+    before = tfp.five_point.launches
+    for gn in (4, 8):
+        Es, valid = tfp.five_point(t1, t2, gn_iters=gn)
+        Ep, vp = tfp._five_point_plain(t1, t2, gn)
+        assert torch.equal(Es.view(torch.int32), Ep.view(torch.int32))
+        assert torch.equal(valid, vp)
+    assert tfp.five_point.launches == before
+    tfp.check_kernel_inputs(t1, t2)
+    bad = {"float32": (t1.double(), t2.double()),
+           r"\(\.\.\., 5, 2\)": (torch.cat([t1, t1[..., :1]], -1),
+                                 torch.cat([t2, t2[..., :1]], -1)),
+           "contiguous": (t1.mT.contiguous().mT, t2)}
+    for msg, (a, b) in bad.items():
+        with pytest.raises(ValueError, match=msg):
+            tfp.check_kernel_inputs(a, b)

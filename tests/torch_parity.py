@@ -28,6 +28,34 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _rotmat(axis, angle):
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]],
+                  [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def minimal_problems(seed, n):
+    """n five-point problems as tests/test_geometry.py draws them ->
+    (x1 (n, 5, 2), x2 (n, 5, 2) float32, unit-norm true E (n, 3, 3))."""
+    rng = np.random.default_rng(seed)
+    x1s, x2s, Es = [], [], []
+    for _ in range(n):
+        R = _rotmat(rng.normal(size=3), rng.uniform(0.05, 0.6))
+        t = rng.normal(size=3)
+        t /= np.linalg.norm(t)
+        X = rng.uniform(-1, 1, (5, 3)) + np.array([0, 0, 4.0])
+        Xc2 = X @ R.T + t
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        x1s.append(X[:, :2] / X[:, 2:])
+        x2s.append(Xc2[:, :2] / Xc2[:, 2:])
+        Es.append(tx @ R / np.linalg.norm(tx @ R))
+    f32 = lambda a: np.asarray(a, np.float32)
+    return f32(x1s), f32(x2s), np.asarray(Es)
+
+
 def _np(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
