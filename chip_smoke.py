@@ -134,11 +134,12 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      and match_keypoints, the distributed LM (bench.py's 8 x 512, 10
      iterations) equals run_lm and optimize_distributed (the n = 600 SE(3)
      CG graph, 2 steps) equals optimize(solver="cg"), all bit for bit, with
-     launches A 8, B 8, C 1 (`launches_by_path["multidevice"]`); then a
+     launches A 1, stacked B 1, C 1 (`launches_by_path["multidevice"]`:
+     BatchSurf describes a rank's frames in one stacked call); then a
      world of two, this script started twice with `--multidevice-rank` on
      cuda:0 over gloo (NCCL refuses two ranks on one card), each rank with
-     launches A 4, B 4, C 1: the batch equal to the single-device one
-     exactly, the BA and the graph within MD_TOL of the world of one, the
+     launches A 1, stacked B 1, C 1: the batch equal to the single-device
+     one exactly, the BA and the graph within MD_TOL of the world of one, the
      replicated outputs bit-equal across the ranks, every rank done within
      MD_RANK_TIMEOUT or all are killed; `mesh_batch8_ms`,
      `dist_ba_iter_ms` (with the all-reduce's bytes) and
@@ -1037,7 +1038,7 @@ def run_batch_path(cfg, frames, golden):
     batch on the stacked frames, C once per pair, and
     neither the single-frame B, the step kernel nor D.  Held against the
     JAX batch fixture, and frame by frame, exactly, against the port's
-    single-frame path (BatchSurf.detect_and_compute) in the same run."""
+    single-frame path (Surf.detect_and_compute a frame) in the same run."""
     B = frames.shape[0]
     if int(golden["n_frames"]) != B:
         raise AssertionError("the batch fixture holds another frame count")
@@ -1064,17 +1065,18 @@ def run_batch_path(cfg, frames, golden):
             mean_best.append(check_mean_best(
                 m.score[f], m.valid[f], golden["mean_best"][f],
                 f"batch frames {f} -> {f + 1}"))
-    ks, ds = bs.detect_and_compute(frames)
+    surf = Surf(cfg, device="cuda")
     for f in range(B):
-        n = int(ks.count[f])
-        same = n == int(kb.count[f]) and torch.equal(ks.valid[f], kb.valid[f])
+        ks, ds = surf.detect_and_compute(frames[f])
+        n = int(ks.count)
+        same = n == int(kb.count[f]) and torch.equal(ks.valid, kb.valid[f])
         for name in ("x", "y", "scale", "strength", "laplace", "octave"):
-            same = same and torch.equal(getattr(ks, name)[f, :n],
+            same = same and torch.equal(getattr(ks, name)[:n],
                                         getattr(kb, name)[f, :n])
-        if not same or not torch.equal(ds[f], db[f]):
+        if not same or not torch.equal(ds, db[f]):
             raise AssertionError(f"batch frame {f} differs from the "
                                  "single-frame path: max |d desc| "
-                                 f"{(ds[f] - db[f]).abs().max().item()}")
+                                 f"{(ds - db[f]).abs().max().item()}")
     emit(dict(phase="batch_path", frames=B, keypoints=kb.count.tolist(),
               golden_keypoints=golden["counts"].tolist(),
               mean_best=mean_best,
@@ -1718,7 +1720,7 @@ MD_PG_STEPS = 2
 # graph's costs read 1.26e-4 relative (the second step's cost, 0.029: 3e-7
 # of the first), so they are held at the JAX test's 1e-3
 MD_TOL = dict(ba_cost_rtol=1e-4, ba_t=1e-4, pg_t=1e-4, pg_cost_rtol=1e-3)
-MD_LAUNCHES = {1: {"A": 8, "B": 8, "C": 1}, 2: {"A": 4, "B": 4, "C": 1}}
+MD_LAUNCHES = {n: {"A": 1, "B_stacked": 1, "C": 1} for n in (1, 2)}
 
 
 def md_inputs(frames):
@@ -1988,11 +1990,12 @@ def run_multidevice_phase(card):
     process (initialize_from_env from the SURF_* contract, the group
     destroyed after); the mesh batch equal to the single-device BatchSurf,
     the distributed LM to run_lm and optimize_distributed to
-    optimize(solver="cg"), all bit for bit; launches A 8, B 8, C 1.  World
-    of two: two processes of this script on cuda:0 over gloo, each with its
-    launches A 4, B 4, C 1; the batch equal to the single-device one, the
-    BA and graph within MD_TOL of the world of one, the replicated outputs
-    bit-equal across the ranks.  Then the times of both worlds."""
+    optimize(solver="cg"), all bit for bit; launches A 1, stacked B 1, C 1.
+    World of two: two processes of this script on cuda:0 over gloo, each
+    with its launches A 1, stacked B 1, C 1; the batch equal to the
+    single-device one, the BA and graph within MD_TOL of the world of one,
+    the replicated outputs bit-equal across the ranks.  Then the times of
+    both worlds."""
     from cuda_surf_tpu_torch.parallel.dryrun import (dryrun_multichip,
                                                      free_port, launch)
     frames = main_batch(BATCH_FRAMES)

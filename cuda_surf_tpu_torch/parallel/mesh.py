@@ -13,7 +13,9 @@ a world of one (NCCL's all-reduce of one rank returns its input).
 
 Frame batches are split over the ranks by rows (`shard_rows`, the
 counterpart of `frame_sharding`); cameras and nodes are held whole by
-every rank (`replicated`).
+every rank (`replicated`).  A rank's results come back whole to every rank
+by `all_gather_rows`, and several small fields in one all-gather by
+`all_gather_fields`.
 """
 
 from __future__ import annotations
@@ -25,15 +27,21 @@ import torch
 import torch.distributed as dist
 
 from ..frontend import require_device
+from ..utils.timing import span
 
 FRAME_AXIS = "frames"
 
 # this rank's device, set by multihost.initialize_from_env with the group
 _rank_device: torch.device | None = None
 
-# all-reduces that reached the process group's backend; a reader sets the
-# count to 0 before the work it counts
-collective_counts = {"all_reduce": 0}
+# collectives that reached the process group's backend: all-reduces,
+# all-gathers, and the bytes this rank received by all-gather; a reader sets
+# each count to 0 before the work it counts
+collective_counts = {"all_reduce": 0, "all_gather": 0, "all_gather_bytes": 0}
+
+# the one-buffer all-gather (its older name in torch releases before it)
+_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,14 +138,45 @@ def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def _all_gather(src: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' contiguous `src` along a new leading block, counted."""
+    out = src.new_empty((mesh.size * src.shape[0], *src.shape[1:]))
+    _gather_into(out, src, group=mesh.group)
+    collective_counts["all_gather"] += 1
+    collective_counts["all_gather_bytes"] += \
+        (mesh.size - 1) * src.numel() * src.element_size()
+    return out
+
+
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's `x` (the same shape on each) concatenated along the
-    leading axis in rank order: the host view of a frame-sharded result.
-    bool travels as uint8."""
+    leading axis in rank order, in one all-gather: the host view of a
+    frame-sharded result.  bool travels as uint8."""
     if mesh.group is None:
         return x
-    src = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
-    out = torch.cat(parts)
-    return out.to(torch.bool) if x.dtype == torch.bool else out
+    with span("mesh.all_gather"):
+        if x.dtype == torch.bool:
+            return _all_gather(x.to(torch.uint8), mesh).to(torch.bool)
+        return _all_gather(x.contiguous(), mesh)
+
+
+def all_gather_fields(fields, mesh: Mesh) -> list:
+    """`all_gather_rows` of each tensor of `fields` (float32, int32 or
+    bool, all with the same leading axis), in ONE all-gather: each rank
+    packs its rows of every field into one buffer of 32-bit words (float32
+    bitcast, bool as a word), and the gathered words are unpacked bit for
+    bit."""
+    if mesh.group is None:
+        return list(fields)
+    with span("mesh.all_gather"):
+        k = fields[0].shape[0]
+        words = [(f.to(torch.int32) if f.dtype == torch.bool
+                  else f.contiguous().view(torch.int32)).reshape(k, -1)
+                 for f in fields]
+        got = _all_gather(torch.cat(words, 1), mesh)
+        out = []
+        for f, w in zip(fields, torch.split(got, [w.shape[1] for w in words],
+                                            1)):
+            w = w.contiguous().reshape(-1, *f.shape[1:])
+            out.append(w != 0 if f.dtype == torch.bool else w.view(f.dtype))
+        return out

@@ -24,6 +24,7 @@ SPANS = (
     "surf.orient", "surf.describe", "surf.match",
     "vo.process", "vo.track", "vo.fivepoint", "vo.score", "vo.refit",
     "vo.scale", "vo.window_ba",
+    "mesh.all_gather", "mesh.match",
 )
 
 _OFF = contextlib.nullcontext()

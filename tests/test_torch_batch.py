@@ -195,20 +195,34 @@ def test_batch_rotated_maps_the_single_frame_path():
 
 
 def test_batchsurf_maps_frames_and_pairs():
+    """BatchSurf is the stacked pipeline: every field and descriptor that
+    of `detect_and_compute_batch`, each frame's keypoints the single-frame
+    path's (its padding slots zero), each pair's matches, by `match` and
+    by `match_sequence`, those of the pair alone."""
     frames = _frames(3)
     cfg = cst.SurfConfig(**KW)
     bs = cst.BatchSurf(cfg, device="cpu")
     surf = cst.Surf(cfg, device="cpu")
     kb, db = bs.detect_and_compute(frames)
     assert kb.x.shape == (3, 256) and db.shape == (3, 256, 64)
+    ks, ds = surf.detect_and_compute_batch(frames)
+    assert all(torch.equal(a, b) for a, b in zip(kb, ks))
+    assert torch.equal(db, ds)
     singles = [surf.detect_and_compute(f) for f in frames]
     for i, (k1, d1) in enumerate(singles):
-        for a, b in zip(k1, _frame_of_t(kb, i)):
-            assert torch.equal(a, b)
+        n = int(k1.count)
+        assert n == int(kb.count[i]) > 30
+        assert torch.equal(k1.valid, kb.valid[i])
+        for fld in ("x", "y", "scale", "strength", "laplace", "ori",
+                    "octave"):
+            assert torch.equal(getattr(k1, fld)[:n], getattr(kb, fld)[i, :n])
+            assert not getattr(kb, fld)[i, n:].any(), fld
         assert torch.equal(d1, db[i])
     sub = lambda k, sl: Keypoints(*[f[sl] for f in k])
     mb = bs.match(sub(kb, slice(0, 2)), db[:2], sub(kb, slice(1, 3)), db[1:])
     assert mb.score.shape == (2, 256)
+    for a, b in zip(mb, bs.match_sequence(kb, db)):
+        assert torch.equal(a, b)
     for i in range(2):
         m1 = surf.match(*singles[i], *singles[i + 1])
         for a, b in zip(m1, mb):

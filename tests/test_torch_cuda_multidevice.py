@@ -10,10 +10,11 @@ contract, the group destroyed after); the mesh `BatchSurf` of 4 rendered
 120x160 frames equal to the single-device `BatchSurf`, the distributed LM
 (4 cameras x 64 points) to `run_lm` and `optimize_distributed` (a noisy
 circle of 80 nodes, CG) to `optimize(solver="cg")`, all bit for bit, with
-kernel launches A 4, B 4, C 1.  World of two: two processes on one card
-over gloo (NCCL refuses two ranks on one GPU), tests/
-torch_multidevice_worker.py: the batch equal to the single-device one
-exactly, with launches A 2, B 2, C 1 a rank; the BA cost at 1e-4 relative
+kernel launches A 1, the stacked B 1, C 1 (a rank's frames in one call of
+the stacked pipeline).  World of two: two processes on one card over gloo
+(NCCL refuses two ranks on one GPU), tests/torch_multidevice_worker.py:
+the batch equal to the single-device one exactly, with launches A 1, B 1,
+C 1 a rank; the BA cost at 1e-4 relative
 and t at tests/test_ba.py's 1e-3 for the distributed LM (the gauge fixes
 camera 0 alone, so the scale of the camera line drifts with the rounding
 of the sums), the graph's t at 1e-4 and costs at 1e-4 relative + 1e-7;
@@ -34,7 +35,7 @@ from cuda_surf_tpu_torch.ba.distributed import (make_distributed_lm,
 from cuda_surf_tpu_torch.io.synth import ba_problem, render_plane_sequence
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
 from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-from cuda_surf_tpu_torch.ops.patch_wavelets import single_rows
+from cuda_surf_tpu_torch.ops.patch_wavelets import stacked_rows
 from cuda_surf_tpu_torch.parallel import global_mesh, initialize_from_env
 from cuda_surf_tpu_torch.parallel.dryrun import free_port
 from cuda_surf_tpu_torch.slam import posegraph
@@ -44,7 +45,7 @@ from torch_parity import (assert_ranks_equal, cuda_device,  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 KW = dict(noctaves=2, max_pts=256, candidates_per_octave=512)
-KERNELS = dict(A=fused_pyramid, B=single_rows, C=fused_best2)
+KERNELS = dict(A=fused_pyramid, B=stacked_rows, C=fused_best2)
 
 
 def _frames():
@@ -107,7 +108,7 @@ def test_world_of_one_nccl_is_single_device(cuda_device, monkeypatch):
         bs.match(km, dm, km, dm)
         torch.cuda.synchronize()
         assert {k: f.launches for k, f in KERNELS.items()} == \
-            dict(A=4, B=4, C=1)
+            dict(A=1, B=1, C=1)
         assert all(torch.equal(a, b) for a, b in zip(km, ks))
         assert torch.equal(dm, ds)
         sprob, sstate = shard_problem(prob, state, mesh)
@@ -132,7 +133,7 @@ def test_two_ranks_on_one_card(cuda_device, tmp_path):
     for res in batch:
         assert str(res["backend"]) == "gloo"
         assert str(res["device"]) == "cuda:0"
-        assert [int(res[f"launches_{k}"]) for k in "ABC"] == [2, 2, 1]
+        assert [int(res[f"launches_{k}"]) for k in "ABC"] == [1, 1, 1]
         for f in ks._fields:
             np.testing.assert_array_equal(res[f"kp_{f}"],
                                           getattr(ks, f).cpu().numpy())

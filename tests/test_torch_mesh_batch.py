@@ -14,8 +14,16 @@ strength at 1e-5 relative: `torch_parity.assert_keypoints_match`),
 descriptor rows at cosine >= 0.99999 (a ring-edge keypoint,
 `torch_parity.ring_edge_keypoints`, at 0.9999); against the port's
 single-device `BatchSurf`, every field and every descriptor exactly (the
-same per-frame pipeline on the same values); the two ranks' gathered
+same stacked pipeline on the same values); the two ranks' gathered
 batches and matches bit-equal.
+
+A sequence as the mesh serves it (`detect_and_compute`, then
+`match_sequence`) at worlds 2 and 4: bit for bit the single-device
+`detect_and_compute_batch` + `match_keypoints` of the whole batch on every
+rank, within the standing frontend tolerances of the benchmark's plain
+reference (`portbench/reference/surfref`; matches: validity and index
+equal, score at 1e-5), in at most 3 all-gathers whose host events all lie
+in the `mesh.all_gather` span.
 """
 
 import json
@@ -30,8 +38,10 @@ from cuda_surf_tpu.parallel import make_mesh as jax_make_mesh
 
 import cuda_surf_tpu_torch as cst
 from cuda_surf_tpu_torch.io.synth import render_plane_sequence
+from cuda_surf_tpu_torch.ops.matcher import match_keypoints
 from cuda_surf_tpu_torch.parallel import Mesh, make_mesh
-from cuda_surf_tpu_torch.types import Keypoints
+from cuda_surf_tpu_torch.types import Keypoints, Matches
+from portbench.reference import surfref
 from torch_parity import (assert_keypoints_match, assert_ranks_equal,
                           one_torch_thread, ring_edge_keypoints,  # noqa: F401
                           row_cosines, run_ranks)
@@ -40,8 +50,8 @@ KW = dict(noctaves=2, max_pts=256, candidates_per_octave=512)
 FIELDS = Keypoints._fields
 
 
-def _frames():
-    return render_plane_sequence(n_frames=4, h=120, w=160, seed=3)[0]
+def _frames(n=4):
+    return render_plane_sequence(n_frames=n, h=120, w=160, seed=3)[0]
 
 
 def _frame(kps, i):
@@ -98,3 +108,52 @@ def test_batch_must_divide_and_world_of_one_is_single_device():
     k0, d0 = cst.BatchSurf(cfg, "cpu").detect_and_compute(frames[:2])
     assert all(torch.equal(a, b) for a, b in zip(k1, k0))
     assert torch.equal(d1, d0)
+
+
+@pytest.mark.parametrize("world,n", [(2, 8), (4, 4)])
+def test_mesh_sequence_is_the_stacked_batch(world, n, tmp_path):
+    """k = n / world frames a rank: 4 (pairs 3 -> 4 cross the ranks) and 1
+    (every pair crosses; the last rank's own pair is padding)."""
+    frames = _frames(n)
+    ranks = run_ranks("sequence", world, tmp_path, dict(
+        frames=frames, cfg=np.str_(json.dumps(KW))))
+    keys = [k for k in ranks[0] if k.startswith(("kp_", "match_", "descs"))]
+    assert_ranks_equal(ranks, keys)
+    got = ranks[0]
+    cfg = cst.SurfConfig(**KW)
+    kb, db = cst.Surf(cfg, device="cpu").detect_and_compute_batch(frames)
+    sub = lambda sl: Keypoints(*[f[sl] for f in kb])
+    mb = match_keypoints(sub(slice(0, -1)), db[:-1], sub(slice(1, None)),
+                         db[1:])
+    for f in FIELDS:
+        np.testing.assert_array_equal(got[f"kp_{f}"], getattr(kb, f).numpy(),
+                                      err_msg=f)
+    for f in Matches._fields:
+        np.testing.assert_array_equal(got[f"match_{f}"],
+                                      getattr(mb, f).numpy(), err_msg=f)
+    np.testing.assert_array_equal(got["descs"], db.numpy())
+
+    k, N = n // world, KW["max_pts"]
+    words = k * (8 * N + 1) + k * N * 64 + k * 6 * N     # a rank's share
+    for res in ranks:
+        assert int(res["all_gathers"]) == 3
+        assert int(res["all_gather_bytes"]) == 4 * (world - 1) * words
+        spans = set(res["gather_spans"].tolist())
+        assert spans == {"mesh.all_gather"}, spans
+
+    ref = surfref.Surf(surfref.SurfConfig(**KW), device="cpu")
+    refs = [ref.detect_and_compute(f) for f in frames]
+    for i, (kr, dr) in enumerate(refs):
+        assert assert_keypoints_match(kr, _frame(Keypoints(*[
+            got[f"kp_{f}"] for f in FIELDS]), i)) > 20
+        v = got["kp_valid"][i]
+        assert row_cosines(got["descs"][i][v],
+                           dr.numpy()[v]).min() >= 0.99999
+        if i + 1 < n:
+            mr = ref.match(kr, dr, *refs[i + 1])
+            ok = mr.valid.numpy()
+            np.testing.assert_array_equal(got["match_valid"][i], ok)
+            np.testing.assert_array_equal(got["match_index"][i][ok],
+                                          mr.index.numpy()[ok])
+            np.testing.assert_allclose(got["match_score"][i][ok],
+                                       mr.score.numpy()[ok], atol=1e-5)

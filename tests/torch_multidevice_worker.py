@@ -18,6 +18,7 @@ sharded values are all-gathered first.
 import argparse
 import json
 import os
+import re
 import sys
 from types import SimpleNamespace
 
@@ -71,14 +72,14 @@ def task_posegraph(mesh, inp):
 
 def task_batch(mesh, inp):
     """BatchSurf(mesh=) on the frames and its match of frame i -> i + 1,
-    with each kernel's launches on the rank (0 on the CPU, where the
-    wrappers run their twins)."""
+    with each kernel's launches on the rank (A, the stacked B, C; 0 on the
+    CPU, where the wrappers run their twins)."""
     from cuda_surf_tpu_torch import BatchSurf, SurfConfig
     from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
     from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-    from cuda_surf_tpu_torch.ops.patch_wavelets import single_rows
+    from cuda_surf_tpu_torch.ops.patch_wavelets import stacked_rows
     from cuda_surf_tpu_torch.types import Keypoints
-    kernels = dict(A=fused_pyramid, B=single_rows, C=fused_best2)
+    kernels = dict(A=fused_pyramid, B=stacked_rows, C=fused_best2)
     for k in kernels.values():
         k.launches = 0
     cfg = SurfConfig(**json.loads(str(inp["cfg"])))
@@ -93,6 +94,60 @@ def task_batch(mesh, inp):
     res.update(descs=descs, match_score=m.score, match_index=m.index,
                **{f"launches_{k}": np.int64(fn.launches)
                   for k, fn in kernels.items()})
+    return res
+
+
+def _gather_spans(events) -> list:
+    """The innermost stage span open at each host event of the backend's
+    all-gather: by the event's chain of parents, else (a backend's work
+    recorded on its own thread) by its start inside a span's interval."""
+    from cuda_surf_tpu_torch.utils import SPANS
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name in SPANS]
+    out = []
+    for e in events:
+        if not re.search(r"all_?gather", e.name, re.I) or e.name in SPANS:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name not in SPANS:
+            p = p.cpu_parent
+        if p is None:
+            t = e.time_range.start
+            inside = [s for s in spans if s[0] <= t <= s[1]]
+            p = min(inside, key=lambda s: s[1] - s[0])[2] if inside else None
+        else:
+            p = p.name
+        out.append(str(p))
+    return out
+
+
+def task_sequence(mesh, inp):
+    """A sequence batch as a mesh serves it: BatchSurf(mesh=)
+    .detect_and_compute of the frames, then its match_sequence, with the
+    all-gathers and bytes they made (`collective_counts`); then the same
+    calls under torch.profiler, -> the span each host event of the
+    backend's all-gather ran in."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_surf_tpu_torch import BatchSurf, SurfConfig
+    from cuda_surf_tpu_torch.parallel.mesh import collective_counts
+    bs = BatchSurf(SurfConfig(**json.loads(str(inp["cfg"]))),
+                   mesh.device.type, mesh=mesh)
+
+    def request():
+        kps, descs = bs.detect_and_compute(inp["frames"])
+        return kps, descs, bs.match_sequence(kps, descs)
+
+    collective_counts.update(all_gather=0, all_gather_bytes=0)
+    kps, descs, m = request()
+    counts = dict(collective_counts)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        request()
+    res = {f"kp_{k}": v for k, v in kps._asdict().items()}
+    res.update({f"match_{k}": v for k, v in m._asdict().items()})
+    res.update(descs=descs, all_gathers=np.int64(counts["all_gather"]),
+               all_gather_bytes=np.int64(counts["all_gather_bytes"]),
+               gather_spans=np.asarray(_gather_spans(prof.events())))
     return res
 
 
@@ -139,7 +194,8 @@ def task_multihost(mesh, inp):
 
 
 TASKS = dict(ba=task_ba, posegraph=task_posegraph, batch=task_batch,
-             elastic=task_elastic, multihost=task_multihost)
+             sequence=task_sequence, elastic=task_elastic,
+             multihost=task_multihost)
 
 
 def main():
