@@ -40,7 +40,11 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      five-point solver, on the 64 JAX draws of golden_terrain_track.npz,
      128 hypotheses a call as track_pair makes it: `valid` equal on every
      slot and every valid candidate within 1e-4 of the twin's, the share
-     equal bit for bit reported);
+     equal bit for bit reported); F, the compaction and subpixel walk, on
+     each frame of the main pair, on the batch's 8 frames in one call and
+     on a 640x480 terrain frame at the VO config: every output field and
+     the counts bit for bit, one launch count a call, and how many step-1
+     movers there were beside the walker set;
   4. for each path, resets the launch counters, runs it, checks that every
      kernel of the path launched (kernel A once per frame on the pair
      paths, once per batch on the batch path) and no other did, and holds
@@ -68,7 +72,7 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      - `track`: Surf + track_pair (5-point RANSAC) on frames 0 and 1 of the
        50-frame terrain orbit at 1280x960, stored in the fixture
        golden_terrain_track.npz with the JAX run's draw (`raw`) and result;
-       launches A 2, B 2, C 1, E 1, D 0, keypoint counts equal, pose
+       launches A 2, B 2, C 1, E 1, F 2, D 0, keypoint counts equal, pose
        finite,
        the good matches equal, the best score within 1 %, and the refits
        and the pose from the JAX run's winning hypothesis at inliers within
@@ -100,7 +104,7 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        mostly track the same pairs.  Each run: at least VO_AGREE of the
        draws within 2 % of JAX's inliers, at most VO_FAIL_RATE of the frames
        at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
-       plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1 a frame
+       plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1, F 1 a frame
        and C 1, E 1 a frame after the first; `vo_frame_ms` on the host
        clock;
   7. drives the SLAM backend, each phase with its launch counts reset
@@ -118,7 +122,7 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      - `loops`: SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO
        cell's 12 frames at seeds 0-7 on the JAX pipeline's key stream and
        the JAX detector's draw of every pair (golden_terrain_loops.npz):
-       launches A 1, B 1 a frame, C and E 1 a tracked pair plus 1 a
+       launches A 1, B 1, F 1 a frame, C and E 1 a tracked pair plus 1 a
        verification;
        the verified pairs JAX's; the verdicts JAX's wherever JAX's inliers
        lie more than 10 % from 60; optimize_with_loops[_sim3] on JAX's own
@@ -134,11 +138,11 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      and match_keypoints, the distributed LM (bench.py's 8 x 512, 10
      iterations) equals run_lm and optimize_distributed (the n = 600 SE(3)
      CG graph, 2 steps) equals optimize(solver="cg"), all bit for bit, with
-     launches A 1, stacked B 1, C 1 (`launches_by_path["multidevice"]`:
+     launches A 1, stacked B 1, C 1, F 1 (`launches_by_path["multidevice"]`:
      BatchSurf describes a rank's frames in one stacked call); then a
      world of two, this script started twice with `--multidevice-rank` on
      cuda:0 over gloo (NCCL refuses two ranks on one card), each rank with
-     launches A 1, stacked B 1, C 1: the batch equal to the single-device
+     launches A 1, stacked B 1, C 1, F 1: the batch equal to the single-device
      one exactly, the BA and the graph within MD_TOL of the world of one, the
      replicated outputs bit-equal across the ranks, every rank done within
      MD_RANK_TIMEOUT or all are killed; `mesh_batch8_ms`,
@@ -207,7 +211,8 @@ from cuda_surf_tpu_torch.parallel.mesh import (all_gather_rows,
                                                 collective_counts, psum)
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
                                                 l2_normalize, sample_frame)
-from cuda_surf_tpu_torch.ops.extrema import _candidate_mask
+from cuda_surf_tpu_torch.ops.extrema import (_candidate_mask, _detect_plain,
+                                             detect)
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
 from cuda_surf_tpu_torch.ops.hessian import response_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
@@ -285,6 +290,11 @@ D_OPS_LIVE, D_OPS_WINDOWS = 53, 72 * 36
 # (80 monomial terms, 40 products of 20, the 3x3 normal equations) and
 # ~10,000 for the constraint matrix, the 10x10 solve and det B(z)
 E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
+# kernel F, counted from the twin's expressions: per mask byte the
+# candidate test and its share of the scans, 2; per fit the 19 stencil
+# indices (4 each) and clamps (2), the gradient and Hessian (19), the
+# pivoted solve (42) and the strength (6), ~140; per slot the fields, 20
+F_OPS_BYTE, F_OPS_FIT, F_OPS_SLOT = 2, 140, 20
 
 
 def emit(obj) -> None:
@@ -802,6 +812,66 @@ def check_kernel_b_step(kps_dev):
                 plain_ms=ms_p, timed_step=sd, timed_taken=n_taken, **bnd)
 
 
+def f_inputs(cfg, frames):
+    """Kernel A's layers and masks of a (H, W) frame or a (B, H, W) stack,
+    the schedule and B: what `detect` takes."""
+    h, w = frames.shape[-2:]
+    stack = frames if frames.ndim == 3 else frames[None]
+    ii = torch.stack([integral_image(f, cfg.doubled) for f in stack])
+    pyr, masks = fused_pyramid(ii if frames.ndim == 3 else ii[0], cfg, h, w)
+    return pyr, masks, cfg.hessian_schedule(h, w), stack.shape[0]
+
+
+def f_bound(masks, out, walker_set) -> dict:
+    """Kernel F's bound on these inputs: the masks read once, each fit's 19
+    stencil values, each slot's 25 bytes of fields written once, and the
+    operations; every candidate fits once and each walker of the walker
+    set at least once more."""
+    fits = int(out["count"]) + min(int(out["walkers"]), walker_set)
+    mask_bytes = sum(m.numel() for m in masks)
+    slots = out["valid"].numel()
+    return bound(mask_bytes + 19 * 4 * fits + 25 * slots,
+                 F_OPS_BYTE * mask_bytes + F_OPS_FIT * fits
+                 + F_OPS_SLOT * slots)
+
+
+def check_kernel_f(cases, card):
+    """Kernel F vs the twin `_detect_plain` on the card, every output field
+    and both counts bit for bit (floats as their bits), one count on
+    detect.launches a call; each case (name, config, frame or stack) timed
+    beside the twin, with F's own time against its bound, and whether the
+    step-1 movers overflowed the max(cap // 8, 64) walker set."""
+    rows = {}
+    for name, cfg, frames in cases:
+        pyr, masks, sched, B = f_inputs(cfg, frames)
+        run = lambda: detect(pyr, sched, cfg, masks, nframes=B)
+        twin = lambda: _detect_plain(pyr, sched, cfg, masks, nframes=B)
+        before = detect.launches
+        got = run()
+        if detect.launches != before + 1:
+            raise AssertionError(f"kernel F {name}: not one launch a call")
+        for k, want in twin().items():
+            a, b = got[k], want
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"kernel F {name}: {k} differs from the "
+                                     "twin")
+        walker_set = max(cfg.max_candidates * B // 8, 64)
+        ms_k, ms_p = time_pair(run, twin)
+        rows[name] = dict(frames=B, count=int(got["count"]),
+                          walkers=int(got["walkers"]), walker_set=walker_set,
+                          overflow=int(got["walkers"]) > walker_set, ms=ms_k,
+                          plain_ms=ms_p,
+                          **own_time(run, f_bound(masks, got, walker_set)))
+    emit(dict(phase="kernel_check", kernel="F", bit_equal=True, cases={
+        n: {k: r[k] for k in ("frames", "count", "walkers", "walker_set",
+                              "overflow")} for n, r in rows.items()},
+        card=card))
+    first = next(iter(rows.values()))
+    return dict(first, max_abs_err=0.0, cases=rows)
+
+
 def c_bound(d1, d2, valid2):
     """Kernel C's bound: a multiply and an add per score element and depth,
     three such products on the tensor cores as 3xTF32, counted at the dense
@@ -968,7 +1038,7 @@ def load_golden(name, config):
 
 KERNELS = {"A": fused_pyramid, "B": single_rows, "B_stacked": stacked_rows,
            "B_step": step_rows, "C": fused_best2, "D": assign_orientations,
-           "E": five_point}
+           "E": five_point, "F": detect}
 
 
 def reset_counts():
@@ -1048,7 +1118,7 @@ def run_batch_path(cfg, frames, golden):
     frames_of = lambda k, sl: Keypoints(*[a[sl] for a in k])
     m = bs.match(frames_of(kb, slice(0, B - 1)), db[:-1],
                  frames_of(kb, slice(1, B)), db[1:])
-    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1})
+    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1, "F": 1})
     if db.shape != (B, cfg.max_pts, cfg.nfeatures) or \
             kb.count.shape != (B,) or kb.x.shape != (B, cfg.max_pts):
         raise AssertionError("batch: outputs malformed")
@@ -1093,7 +1163,7 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
     try:
         kps, descs, _, counts = run_path(
             "step_routed", cfg, frames, golden,
-            {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1})
+            {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1, "F": 2})
     finally:
         patch_wavelets.DEC_STEPS = ()
     for a, b in zip(descs, descs_main):
@@ -1163,7 +1233,7 @@ def run_track_path(card):
     reset_counts()
     (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
     res = track_pair(k1, d1, k2, d2, intr, raw=raw)
-    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1})
+    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1, "F": 2})
     kp_counts = [int(k1.count), int(k2.count)]
     if kp_counts != g["counts"].tolist():
         raise AssertionError(f"track: keypoints {kp_counts}, JAX golden "
@@ -1327,12 +1397,13 @@ def run_vo_path(card):
                     frame_ms.append((time.perf_counter() - t0) * 1e3)
                 got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
                 check_launches(f"vo {run} seed {seed} frame {i}", got,
-                               dict(A=1, B=1, **({"C": 1, "E": 1} if i
-                                                 else {})))
+                               dict(A=1, B=1, F=1, **({"C": 1, "E": 1} if i
+                                                      else {})))
             total = read_counts(f"vo {run}", {"A": len(frames),
                                               "B": len(frames),
                                               "C": len(frames) - 1,
-                                              "E": len(frames) - 1})
+                                              "E": len(frames) - 1,
+                                              "F": len(frames)})
             counts = counts or total
             traj = pipe.trajectory()
             if not np.isfinite(traj).all():
@@ -1356,8 +1427,8 @@ def run_vo_path(card):
                              "plain x 1.15")
     emit(dict(phase="vo_path", frames=len(frames), seeds=list(VO_SEEDS),
               runs=runs, launches_per_frame=dict(
-                  first={"A": 1, "B": 1},
-                  after={"A": 1, "B": 1, "C": 1, "E": 1}),
+                  first={"A": 1, "B": 1, "F": 1},
+                  after={"A": 1, "B": 1, "C": 1, "E": 1, "F": 1}),
               launches=counts))
     emit(dict(metric="vo_frame_ms", value=statistics.median(frame_ms),
               what="SlamPipeline.process, plain, one 200x280 frame of the "
@@ -1562,11 +1633,11 @@ def run_loops_phase(card):
             got = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
             pairs = 1 + n_ver      # the tracked pair and each verification
             check_launches(f"loops seed {seed} frame {f}", got,
-                           dict(A=1, B=1, **({"C": pairs, "E": pairs}
-                                             if f else {})))
+                           dict(A=1, B=1, F=1, **({"C": pairs, "E": pairs}
+                                                  if f else {})))
         det = pipe._detector
         total = read_counts(f"loops seed {seed}", {
-            "A": len(frames), "B": len(frames),
+            "A": len(frames), "B": len(frames), "F": len(frames),
             "C": len(frames) - 1 + det.n_verifications,
             "E": len(frames) - 1 + det.n_verifications})
         counts = counts or total
@@ -1625,8 +1696,9 @@ def run_loops_phase(card):
               runs=rows, median=med, jax_median=jmed,
               median_seeds_0_3=med4, jax_median_seeds_0_3=jmed4,
               resume=resume,
-              launches_per_frame=dict(first={"A": 1, "B": 1}, after={
-                  "A": 1, "B": 1, "C": "1 + the frame's verifications",
+              launches_per_frame=dict(first={"A": 1, "B": 1, "F": 1}, after={
+                  "A": 1, "B": 1, "F": 1,
+                  "C": "1 + the frame's verifications",
                   "E": "1 + the frame's verifications"}),
               launches=counts))
     emit(dict(metric="slam_loop_frame_ms", value=statistics.median(frame_ms),
@@ -1720,7 +1792,7 @@ MD_PG_STEPS = 2
 # graph's costs read 1.26e-4 relative (the second step's cost, 0.029: 3e-7
 # of the first), so they are held at the JAX test's 1e-3
 MD_TOL = dict(ba_cost_rtol=1e-4, ba_t=1e-4, pg_t=1e-4, pg_cost_rtol=1e-3)
-MD_LAUNCHES = {n: {"A": 1, "B_stacked": 1, "C": 1} for n in (1, 2)}
+MD_LAUNCHES = {n: {"A": 1, "B_stacked": 1, "C": 1, "F": 1} for n in (1, 2)}
 
 
 def md_inputs(frames):
@@ -1990,9 +2062,10 @@ def run_multidevice_phase(card):
     process (initialize_from_env from the SURF_* contract, the group
     destroyed after); the mesh batch equal to the single-device BatchSurf,
     the distributed LM to run_lm and optimize_distributed to
-    optimize(solver="cg"), all bit for bit; launches A 1, stacked B 1, C 1.
+    optimize(solver="cg"), all bit for bit; launches A 1, stacked B 1, C 1,
+    F 1.
     World of two: two processes of this script on cuda:0 over gloo, each
-    with its launches A 1, stacked B 1, C 1; the batch equal to the
+    with its launches A 1, stacked B 1, C 1, F 1; the batch equal to the
     single-device one, the BA and graph within MD_TOL of the world of one,
     the replicated outputs bit-equal across the ranks.  Then the times of
     both worlds."""
@@ -2209,7 +2282,8 @@ def main() -> int:
     dbl["B"], _ = check_kernel_b(DOUBLED_CONFIG, kps_dbl,
                                  ["upright64", "rotated64"], "doubled")
 
-    pair_kernels = {"A": 2, "B": 2, "C": 1}    # A: one launch a frame
+    # A and F: one launch a frame
+    pair_kernels = {"A": 2, "B": 2, "C": 1, "F": 2}
     counts = {}
     kps, descs, m, counts["main"] = run_path("main", cfg, frames,
                                              golden["main"], pair_kernels)
@@ -2223,6 +2297,12 @@ def main() -> int:
     kb, db, counts["batch"] = run_batch_path(cfg, batch_frames,
                                              golden["batch"])
 
+    vo_frame = render_terrain_sequence(n_frames=1, h=480, w=640)[0][0]
+    res["F"] = check_kernel_f([
+        ("main_left", cfg, frames_dev[0]), ("main_right", cfg, frames_dev[1]),
+        ("batch8", cfg, torch.stack(batch_dev)),
+        ("vo_640x480", SurfConfig(**VO_CONFIG),
+         torch.as_tensor(vo_frame).cuda())], card)
     res["C"] = check_kernel_c(descs[0], descs[1], kps[1].valid)
     c128 = check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
     res["C"].update(d128=c128, pairs=check_kernel_c_pairs(
@@ -2316,6 +2396,9 @@ def main() -> int:
         "E": ("five_point", "fivepoint.cu",
               "none: not a port (cuda_surf_tpu/geometry/fivepoint.py is "
               "XLA-compiled jnp)", None, "track"),
+        "F": ("detect_glue", "extrema.cu",
+              "none: not a port (cuda_surf_tpu/ops/extrema.py:detect is "
+              "XLA-compiled jnp)", None, "main"),
     }
     rows = []
     for k, (name, src, repl, also, path) in meta.items():
@@ -2356,6 +2439,8 @@ def main() -> int:
                        pairs=r["pairs"])
         if k == "D":
             row["replaces_mode"] = "grids"
+        if k == "F":
+            row["cases"] = r["cases"]
         if k in dbl:
             row["doubled"] = {kk: v for kk, v in dbl[k].items()}
         rows.append(row)

@@ -65,6 +65,11 @@ _SIGNATURES = {
     "surf_best2_occupancy": [_I, _P, _P],
     # x1, x2, n, gn_iters, Es, valid, stream
     "surf_fivepoint": [_P, _P, _I, _I, _P, _P, _P],
+    # resp[], masks[] (host arrays of device pointers), noct, plan, nchunks,
+    # cap, cap2, interp_moves, thresh, init_lobe, max_scale, scratch, valid,
+    # fields, ifields, stream
+    "surf_extrema": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P,
+                     _P, _P],
 }
 
 

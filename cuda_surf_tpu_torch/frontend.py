@@ -2,16 +2,16 @@
 per call, or a batch of frames per call for throughput.
 
 Mirror of Surfor::detectAndCompute (surf.cpp:205-355): integral image ->
-kernel A (response layers + NMS masks of all octaves) -> compaction and
-subpixel walk -> makePoint -> kernel D (orientation, unless upright) ->
-kernel B (descriptor rows) -> L2 normalise.  Matching runs kernel C.
-PyTorch runs eagerly, so there is nothing to compile; the kernels are
-built at their first launch.
+kernel A (response layers + NMS masks of all octaves) -> kernel F
+(compaction and subpixel walk) -> makePoint -> kernel D (orientation,
+unless upright) -> kernel B (descriptor rows) -> L2 normalise.  Matching
+runs kernel C.  PyTorch runs eagerly, so there is nothing to compile; the
+kernels are built at their first launch.
 
-The eager glue between the kernels is launch-bound: the compaction and
-walk of one frame are about a thousand small launches.
-`detect_and_compute_batch` runs those stages once over the union of B
-frames' candidates, so a batch pays them once and not B times.
+The eager glue between the kernels is launch-bound: makePoint of one
+frame is about a hundred small launches.  `detect_and_compute_batch`
+runs F and makePoint once over the union of B frames' candidates, so a
+batch pays them once and not B times.
 """
 
 from __future__ import annotations

@@ -18,6 +18,12 @@ Re-derivation of findMaximumWithInterp (surfd.cu:676-832), fitQuadrat
      max(cap//8, 64) active set, and overflow walkers keep their
      first-step fit (the JAX package's rule, extrema.py:377-419).
 
+`detect` runs steps 2-3 as kernel F (csrc/extrema.cu, three launches, no
+host sync) on a CUDA tensor and as the eager twin `_detect_plain` on a
+CPU one; any other device raises.  The kernel reads kernel A's layers and
+masks in place and takes its geometry from `extrema_plan`, a table built
+once per shape and kept on the device.
+
 Invalid slots carry linear index 0, so `lin + off` can go negative;
 every stencil index is clamped into the pyramid before it is read
 (torch raises, and CUDA device-asserts, where JAX silently clamps).
@@ -27,10 +33,15 @@ inside the per-scale windows and the walk stays inside the borders.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..config import SurfConfig, OctaveSchedule
 from ..types import compact
 
@@ -158,23 +169,153 @@ def fit_sparse(resp_flat: torch.Tensor, lin: torch.Tensor,
                             h_sr, h_sc, h_rc, c)
 
 
+def _tables(shapes, borders, octaves):
+    """The small tables of a detection, from each octave's (ms, oh, ow),
+    its schedule's walk borders (surf.cpp:261-269) and octave number:
+    (octab (4, noct): per octave [oh, ow, first element in a frame,
+    octave number]; btab (noct * ms_p,): the borders zero-padded to the
+    longest schedule; fit_offsets (3, 19): `_FIT_OFFSETS` as (ds, dr, dc)
+    rows), int32."""
+    offs = np.cumsum([0] + [ms * oh * ow for ms, oh, ow in shapes])[:-1]
+    octab = np.array([[oh for _, oh, _ in shapes], [ow for *_, ow in shapes],
+                      offs, octaves], np.int32)
+    ms_p = max(len(b) for b in borders)
+    btab = np.array([v for b in borders
+                     for v in list(b) + [0] * (ms_p - len(b))], np.int32)
+    return octab, btab, np.array(_FIT_OFFSETS, np.int32).T.copy()
+
+
+# Kernel F's limits and constants (csrc/extrema.cu): octaves, scales an
+# octave, mask bytes a chunk, and the plan's layout.
+MAX_OCTAVES, MAX_SCALES = 8, 16
+CHUNK = 4092
+PLAN_HEADER, OCT_INTS = 8, 8
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExtremaPlan:
+    table: np.ndarray       # the packed int32 plan
+    dev: torch.Tensor       # `table` on the device
+    nchunks: int            # chunks of the whole stack (the launch grid)
+
+
+@functools.lru_cache(maxsize=32)
+def extrema_plan(shapes: tuple, borders: tuple, octaves: tuple, nframes: int,
+                 device: str) -> ExtremaPlan:
+    """Kernel F's static plan for `nframes` stacked frames whose octaves'
+    layers are `shapes` ((ms, oh, ow) each), with the schedules' walk
+    `borders` and `octaves` numbers, packed and copied to `device` once:
+
+      header (PLAN_HEADER ints): noct, nframes, elements a frame, chunks a
+        frame, ms_p, 19, CHUNK, 0;
+      per octave (OCT_INTS): oh, ow, ms, ms * oh * ow, first element in a
+        frame, octave number, first chunk in a frame, 0;
+      the walk borders (noct * ms_p) and the stencil (3 * 19), as `_tables`
+        gives them to the twin.
+    """
+    noct = len(shapes)
+    if not 1 <= noct <= MAX_OCTAVES:
+        raise ValueError(f"kernel F takes 1 to {MAX_OCTAVES} octaves, "
+                         f"got {noct}")
+    if max(len(b) for b in borders) > MAX_SCALES:
+        raise ValueError(f"kernel F takes at most {MAX_SCALES} scales")
+    octab, btab, stencil = _tables(shapes, borders, octaves)
+    sizes = [ms * oh * ow for ms, oh, ow in shapes]
+    chunks = [-(-n // CHUNK) for n in sizes]
+    total_f = sum(sizes)
+    if total_f * nframes >= 2 ** 31:
+        raise ValueError(f"detect: {nframes} frames of {total_f} responses "
+                         "overflow the int32 candidate index")
+    rows = np.zeros((noct, OCT_INTS), np.int32)
+    rows[:, 0:2] = octab[:2].T
+    rows[:, 2] = [ms for ms, _, _ in shapes]
+    rows[:, 3] = sizes
+    rows[:, 4:6] = octab[2:].T
+    rows[:, 6] = np.cumsum([0] + chunks)[:-1]
+    header = np.array([noct, nframes, total_f, sum(chunks),
+                       btab.size // noct, stencil.shape[1], CHUNK, 0],
+                      np.int32)
+    table = np.concatenate([header, rows.reshape(-1), btab,
+                            stencil.reshape(-1)]).astype(np.int32)
+    return ExtremaPlan(table, torch.as_tensor(table).to(device),
+                       nframes * sum(chunks))
+
+
 def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
            nframes: int = 1):
     """All-octave detection: NMS mask -> global compaction -> batched
     interpolation walk.  Returns a dict of (cap,) tensors: valid, nx, ny,
     ns, strength, octave (octave-local interpolated coords, ready for
-    makePoint scaling), frame, and the candidate count.
+    makePoint scaling), frame, and the candidate count and the number of
+    step-1 movers (`walkers`), both 0-dim.
 
     `cand_masks` are the per-octave (ms, oh, ow) bool NMS masks that
     `fused_detect.fused_pyramid` returns with the layers.
 
     `nframes=B` stacks frames: every `pyr[o]` and `cand_masks[o]` carries
     a leading (B, ...) axis, and ONE compaction and ONE walk run over the
-    union of the B frames' candidates, so their hundreds of small
-    launches are paid once per batch and not once per frame.  The flat
-    layout is frame-major, [frame0: oct0..octN | frame1: ...], so each
-    frame's block is the single-frame layout; the capacity and the walk's
-    active set scale to B * cap, and `frame` holds each candidate's frame.
+    union of the B frames' candidates.  The flat layout is frame-major,
+    [frame0: oct0..octN | frame1: ...], so each frame's block is the
+    single-frame layout; the capacity and the walk's active set scale to
+    B * cap, and `frame` holds each candidate's frame.
+
+    CUDA: kernel F, one call of three launches whatever B, no host sync.
+    CPU: the twin `_detect_plain`.
+    """
+    dev = pyr[0].device
+    if dev.type == "cpu":
+        return _detect_plain(pyr, scheds, cfg, cand_masks, cap, nframes)
+    if dev.type != "cuda":
+        raise ValueError(f"detect: unsupported device {dev}")
+    B, noct = nframes, len(pyr)
+    if len(cand_masks) != noct or len(scheds) != noct:
+        raise ValueError(f"detect: {noct} octaves of layers, "
+                         f"{len(cand_masks)} of masks, {len(scheds)} "
+                         "schedules")
+    shapes = []
+    for p, m in zip(pyr, cand_masks):
+        _build.require_cuda(p, "detect: pyr", torch.float32)
+        _build.require_cuda(m, "detect: cand_masks", torch.bool)
+        if p.device != dev or m.device != dev or p.shape != m.shape \
+                or p.ndim not in (3, 4) \
+                or p.numel() != B * p.shape[-3:].numel():
+            raise ValueError(f"detect: layers {tuple(p.shape)} and masks "
+                             f"{tuple(m.shape)} on {p.device} / {m.device} "
+                             f"are not {B} frames of (ms, oh, ow) on {dev}")
+        shapes.append(tuple(p.shape[-3:]))
+    cap = (cfg.max_candidates if cap is None else cap) * B
+    if cap < 1:
+        raise ValueError(f"detect: capacity {cap}")
+    plan = extrema_plan(tuple(shapes), tuple(s.borders for s in scheds),
+                        tuple(s.octave for s in scheds), B, str(dev))
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    fields = torch.empty((4, cap), dtype=torch.float32, device=dev)
+    ints = torch.empty(2 * cap + 2 + 4 * plan.nchunks, dtype=torch.int32,
+                       device=dev)
+    ptrs = lambda ts: (ctypes.c_void_p * noct)(*[t.data_ptr() for t in ts])
+    with torch.cuda.device(dev):
+        _build.launch(
+            "surf_extrema", ptrs(pyr), ptrs(cand_masks), noct,
+            _build.ptr(plan.dev), plan.nchunks, cap, max(cap // 8, 64),
+            cfg.interp_moves, cfg.thresh, cfg.init_lobe, cfg.max_scale,
+            _build.ptr(ints[2 * cap + 2:]), _build.ptr(valid),
+            _build.ptr(fields), _build.ptr(ints), _build.stream(dev))
+    detect.launches += 1
+    return dict(valid=valid, nx=fields[0], ny=fields[1], ns=fields[2],
+                strength=fields[3], octave=ints[:cap], frame=ints[cap:2 * cap],
+                count=ints[2 * cap], walkers=ints[2 * cap + 1])
+
+
+detect.launches = 0
+
+
+def _detect_plain(pyr, scheds, cfg: SurfConfig, cand_masks,
+                  cap: int | None = None, nframes: int = 1):
+    """`detect` in eager torch, kernel F's plain twin: the same outputs.
+
+    With `nframes=B` ONE compaction and ONE walk run over the union of the
+    B frames' candidates, so their hundreds of small launches are paid
+    once per batch and not once per frame.
     """
     noct = len(pyr)
     B = nframes
@@ -198,18 +339,12 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
     count, valid, lin = compact(mask, cap, lin0)
 
     # --- static per-candidate geometry decoded from the linear index ---
-    # every small table in one host-to-device copy: per-octave
-    # [oh, ow, offset, octave], the per-(octave, scale) walk borders
-    # (surf.cpp:261-269) and the fit's stencil offsets
-    ms_p = max(len(s.borders) for s in scheds)
-    btab = []
-    for o in range(noct):
-        bs = list(scheds[o].borders)
-        btab += bs + [0] * (ms_p - len(bs))
-    consts = torch.as_tensor(np.concatenate([
-        np.array([[sh[1] for sh in shapes], [sh[2] for sh in shapes],
-                  offs[:-1], [sch.octave for sch in scheds]]).reshape(-1),
-        btab, np.array(_FIT_OFFSETS).T.reshape(-1)]).astype(np.int32)).to(dev)
+    # every small table in one host-to-device copy
+    octab, btab, fit_offsets = _tables(
+        shapes, [s.borders for s in scheds], [s.octave for s in scheds])
+    ms_p = btab.shape[0] // noct
+    consts = torch.as_tensor(np.concatenate(
+        [octab.reshape(-1), btab, fit_offsets.reshape(-1)])).to(dev)
     octab = consts[:4 * noct].reshape(4, noct)
     btab = consts[4 * noct:4 * noct + len(btab)]
     fit_offsets = consts[4 * noct + len(btab):].reshape(3, len(_FIT_OFFSETS))
@@ -294,4 +429,5 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
     ny = octave * (r_fit.to(torch.float32) + off[:, 1])
     nx = octave * (c_fit.to(torch.float32) + off[:, 2])
     return dict(valid=good, nx=nx, ny=ny, ns=ns, strength=strength,
-                octave=octv, frame=frame, count=count)
+                octave=octv, frame=frame, count=count,
+                walkers=torch.sum(active, dtype=torch.int32))

@@ -4,10 +4,10 @@ of frames, on one NVIDIA GPU.
 Splits `frontend.detect_and_compute` on frame 0 of the 1280x960 main pair
 (cuda_surf_tpu_torch.io.main_pair, on the card) into its stages, at the
 main config (upright) and the rotated config (upright=False): integral
-image, kernel A, detection (compaction + subpixel walk), makePoint +
-Laplacian sign, orientation (kernel D, rotated only), descriptor
-geometry, kernel B's rows, normalisation, the whole frame, and the match
-of frame 0 against frame 1 (kernel C and its glue).  Each
+image, kernel A, detection (kernel F: compaction + subpixel walk),
+makePoint + Laplacian sign, orientation (kernel D, rotated only),
+descriptor geometry, kernel B's rows, normalisation, the whole frame, and
+the match of frame 0 against frame 1 (kernel C and its glue).  Each
 stage runs on the outputs of the stages before it.  For each it prints
 
   - `ms`: device time with CUDA events, median of --runs calls after 5
