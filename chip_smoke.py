@@ -1,23 +1,26 @@
-"""Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU.
+"""Check the PyTorch + CUDA port's paths once on one NVIDIA GPU.
+
+This script checks; it measures nothing.  The benchmark (`python3 -m
+portbench.run`) measures the cells, and `probe_stages.py` gives the
+readings no cell takes (`--kernels`: each kernel's own time, occupancy and
+bound share; `--track`: the VO stages and the pose-graph step).
 
 The pair paths run the 1280x960 pair cuda_surf_tpu_torch.io.main_pair
 through Surf(cfg, device="cuda"): detect + describe on each frame, then left
 -> right matching.  The main path is the reference demo's workload, upright
 64-d SURF at SurfConfig(noctaves=4, thresh=4.0, upright=True, max_pts=4096,
 candidates_per_octave=4096); the rotated path is the same config with
-upright=False (orientation, then rotated descriptors), as bench.py times it
-for `rotated_pair_ms`; the doubled paths add doubled=True to each (the frame
-upsampled 2x: a 2560x1920 integral image); the step-routed path is the main
-path with patch_wavelets.DEC_STEPS = (4, 5, 6, 7, 8), which sends the
-keypoints of those sampling steps through the static-step kernel.  The batch
-path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
-(frames 0 and 1 are the main pair) at the main config and matches frame i
--> i + 1 with BatchSurf.match.  The script
+upright=False (orientation, then rotated descriptors); the doubled paths add
+doubled=True to each (the frame upsampled 2x: a 2560x1920 integral image);
+the step-routed path is the main path with patch_wavelets.DEC_STEPS = (4, 5,
+6, 7, 8), which sends the keypoints of those sampling steps through the
+static-step kernel.  The batch path runs Surf.detect_and_compute_batch on
+the 8 frames of io.main_batch (frames 0 and 1 are the main pair) at the main
+config and matches frame i -> i + 1 with BatchSurf.match.  The script
 
   1. prints the card (nvidia-smi), CUDA, nvcc and Triton versions;
   2. builds the kernels from cuda_surf_tpu_torch/csrc with nvcc, one
-     process per source, in parallel, and prints what ptxas reports and how
-     many blocks of kernel A and of the describe kernel fit one SM;
+     process per source, in parallel, and prints what ptxas reports;
   3. holds each kernel against its plain PyTorch twin on the card at the
      paths' shapes (A: layers bit-exact and masks equal, on each frame of
      the pair and, in one launch, on the stack of the 8 frames, where
@@ -30,71 +33,52 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
      equal bit for bit to kernel B's, overflow beyond a small cap left
      untaken; C at D = 64 and 128 (its products are 3xTF32 on the tensor
      cores): |d score| <= 1e-5 and equal indices wherever best - second >=
-     1e-5; C on the batch's 7 pairs
-     of consecutive frames in one launch: the same against the twin, and
-     equal bit for bit to seven launches of one pair; D: its in-kernel
-     geometry's angles those of the twin on orient_geometry, within 1e-4 rad
-     wherever the top-two window gap is >= 1e-5 relative, one of the two
-     top windows below that; B, D and the step kernel bit-identical across
-     two launches; A, D and B again at the doubled frame's size; E, the
-     five-point solver, on the 64 JAX draws of golden_terrain_track.npz,
-     128 hypotheses a call as track_pair makes it: `valid` equal on every
-     slot and every valid candidate within 1e-4 of the twin's, the share
-     equal bit for bit reported); F, the compaction and subpixel walk, on
-     each frame of the main pair, on the batch's 8 frames in one call and
-     on a 640x480 terrain frame at the VO config: every output field and
-     the counts bit for bit, one launch count a call, and how many step-1
-     movers there were beside the walker set;
-  4. for each path, resets the launch counters, runs it, checks that every
-     kernel of the path launched (kernel A once per frame on the pair
+     1e-5; C on the batch's 7 pairs of consecutive frames in one launch:
+     the same against the twin, and equal bit for bit to seven launches of
+     one pair; D: its in-kernel geometry's angles those of the twin on
+     orient_geometry, within 1e-4 rad wherever the top-two window gap is
+     >= 1e-5 relative, one of the two top windows below that; B, D and the
+     step kernel bit-identical across two launches; A, D and B again at the
+     doubled frame's size; E, the five-point solver, on the 64 JAX draws of
+     golden_terrain_track.npz, 128 hypotheses a call as track_pair makes
+     it: `valid` equal on every slot and every valid candidate within 1e-4
+     of the twin's, the share equal bit for bit reported; F, the compaction
+     and subpixel walk, on each frame of the main pair, on the batch's 8
+     frames in one call and on a 640x480 terrain frame at the VO config:
+     every output field and the counts bit for bit, one launch a call, and
+     how many step-1 movers there were beside the walker set);
+  4. for each path, snapshots `_build.launch_counts`, runs it, checks that
+     every kernel of the path launched (kernel A once per frame on the pair
      paths, once per batch on the batch path) and no other did, and holds
-     the keypoints
-     and the mean best score against the path's JAX golden fixture
-     (cuda_surf_tpu_torch/data/golden_plane_*.npz; the rotated ones also
-     hold the orientations, to 1e-3 rad wherever the gap is >= 1e-5 and to
-     one of the two top windows below it; the batch one also the Laplacian
-     signs and the zero padding).  The batch must also equal the port's own
-     single-frame path frame by frame, exactly, and the step-routed path
-     the main path's descriptors;
-  5. times the pairs, the batch beside the same 8 frames through the
-     single-frame path (in turns, on the host clock and with CUDA events,
-     with the device operations per frame of both from torch.profiler), the
-     match and each kernel beside its twin with CUDA events (10 warm-up
-     runs, median of 50; fewer for the slow twins; the event time includes
-     the wrapper's eager glue, so the kernel's own device time is taken
-     beside it, with events around the library call alone), and computes
-     each kernel's bound: the larger of its bytes (inputs read once, outputs
-     written once) over the card's memory rate and its operations on this
-     run's data over the card's float32 rate (kernel C's three TF32 products
-     a score over the card's dense TF32 rate);
-  6. drives the visual-odometry paths after the frontend's, each with its
-     launch counts reset before and read after it:
+     the keypoints and the mean best score against the path's JAX golden
+     fixture (cuda_surf_tpu_torch/data/golden_plane_*.npz; the rotated ones
+     also hold the orientations, to 1e-3 rad wherever the gap is >= 1e-5
+     and to one of the two top windows below it; the batch one also the
+     Laplacian signs and the zero padding).  The batch must also equal the
+     port's own single-frame path frame by frame, exactly, and the
+     step-routed path the main path's descriptors;
+  5. drives the visual-odometry paths after the frontend's, each with its
+     launches counted:
      - `track`: Surf + track_pair (5-point RANSAC) on frames 0 and 1 of the
        50-frame terrain orbit at 1280x960, stored in the fixture
        golden_terrain_track.npz with the JAX run's draw (`raw`) and result;
        launches A 2, B 2, C 1, E 1, F 2, D 0, keypoint counts equal, pose
-       finite,
-       the good matches equal, the best score within 1 %, and the refits
-       and the pose from the JAX run's winning hypothesis at inliers within
-       2 %, rotation within 0.1 degree, t's direction within 1 degree.  On
-       this pair several candidates tie at the best score (every good
-       match an inlier) and the first wins, which rests on float32 rounding
-       (ROADMAP Queue 3, "RANSAC ties"), and the five-point candidates of an
-       ill-conditioned sample differ between the packages.  So each of the
-       fixture's 64 JAX draws is held to the JAX run where the answer is
-       defined: the port's best score lies within one point (a point at
-       the threshold) of JAX's on every draw, and the refits and the pose
-       from JAX's winning hypothesis give JAX's result at the tolerances
-       above on at least WINNER_AGREE draws; the whole track_pair, which
-       breaks the tie its own way, must have median inliers over the draws
-       within 2 % of JAX's.
-       Then `track_ms`: track_pair alone on the
-       card-resident keypoints, drawing from the port's own generator,
-       with its device operations and device us;
+       finite, the good matches equal.  On this pair several candidates tie
+       at the best score (every good match an inlier) and the first wins,
+       which rests on float32 rounding (ROADMAP Queue 5, "RANSAC ties"), and
+       the five-point candidates of an ill-conditioned sample differ between
+       the packages.  So each of the fixture's 64 JAX draws is held to the
+       JAX run where the answer is defined: the port's best score lies
+       within one point (a point at the threshold) of JAX's on every draw,
+       and the refits and the pose from JAX's winning hypothesis give JAX's
+       result (inliers within 2 %, rotation within 0.1 degree, t's direction
+       within 1 degree) on at least WINNER_AGREE draws; the whole
+       track_pair, which breaks the tie its own way, must have median
+       inliers over the draws within 2 % of JAX's;
      - `ba`: bench.py's 8-camera x 512-point problem (io.synth.ba_problem):
        one lm_step at lambda = 1e-3 against golden_ba_step.npz at 1e-5 on
        the state and 1e-4 relative on the cost, run_lm for 10 iterations at
-       1e-4; then `ba_step_ms`;
+       1e-4;
      - `vo`: SlamPipeline over the 12-frame terrain orbit at 200x280 (the
        JAX package's own VO run), plain, with ba_refine=True and with
        window_ba=4, each at the seeds 0-7 of golden_terrain_vo.npz on the
@@ -104,17 +88,15 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        mostly track the same pairs.  Each run: at least VO_AGREE of the
        draws within 2 % of JAX's inliers, at most VO_FAIL_RATE of the frames
        at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
-       plain median ATE < 0.06 and the windowed one below the plain x 1.15.  Trajectories finite.  Launches A 1, B 1, F 1 a frame
-       and C 1, E 1 a frame after the first; `vo_frame_ms` on the host
-       clock;
-  7. drives the SLAM backend, each phase with its launch counts reset
-     before and read after it:
+       plain median ATE < 0.06 and the windowed one below the plain x 1.15.
+       Trajectories finite.  Launches A 1, B 1, F 1 a frame and C 1, E 1 a
+       frame after the first;
+  6. drives the SLAM backend, each phase with its launches counted:
      - `posegraph`: the SE(3) circle graph of tests/test_posegraph.py at
        n = 64 (8 loops, dense path) and n = 600 (30 loops, CG path) and
        their Sim(3) counterparts (golden_posegraph.npz): `optimize` held to
        the JAX result and cost curve (PG_TOL), a second run equal bit for
-       bit, no kernel launched; `posegraph_iter_ms` (one Gauss-Newton step,
-       CUDA events) with its device operations, CG rounds and host reads;
+       bit, no kernel launched;
      - `cli`: `python -m cuda_surf_tpu_torch.demo --iters 3` and
        `python -m cuda_surf_tpu_torch.slam.demo --posegraph`, each a
        process of its own, must exit 0; the frame loader's path (native or
@@ -123,38 +105,29 @@ path runs Surf.detect_and_compute_batch on the 8 frames of io.main_batch
        cell's 12 frames at seeds 0-7 on the JAX pipeline's key stream and
        the JAX detector's draw of every pair (golden_terrain_loops.npz):
        launches A 1, B 1, F 1 a frame, C and E 1 a tracked pair plus 1 a
-       verification;
-       the verified pairs JAX's; the verdicts JAX's wherever JAX's inliers
-       lie more than 10 % from 60; optimize_with_loops[_sim3] on JAX's own
-       frames, closures and depths at PG_TOL; per run the JAX test's ATE
-       bounds (SE(3) < max(1.5 x VO, 0.08), Sim(3) < max(3 x VO, 0.12)) and
-       the median SE(3) ATE <= 1.5 x JAX's; a run stopped after 6 frames
-       through run_sequence's checkpoint_dir and resumed equals the
-       continuous run bit for bit; `slam_loop_frame_ms`, `loop_query_ms`;
-  8. drives the multi-device layer (`multidevice`, after `loops`): a world
+       verification; the verified pairs JAX's; the verdicts JAX's wherever
+       JAX's inliers lie more than 10 % from 60; optimize_with_loops[_sim3]
+       on JAX's own frames, closures and depths at PG_TOL; per run the JAX
+       test's ATE bounds (SE(3) < max(1.5 x VO, 0.08), Sim(3) < max(3 x VO,
+       0.12)) and the median SE(3) ATE <= 1.5 x JAX's; a run stopped after
+       6 frames through run_sequence's checkpoint_dir and resumed equals the
+       continuous run bit for bit;
+  7. drives the multi-device layer (`multidevice`, after `loops`): a world
      of one over NCCL in this process (initialize_from_env from the SURF_*
      contract, the group destroyed after), where the mesh BatchSurf of the
      batch path's 8 frames and its match equal the single-device BatchSurf
      and match_keypoints, the distributed LM (bench.py's 8 x 512, 10
      iterations) equals run_lm and optimize_distributed (the n = 600 SE(3)
      CG graph, 2 steps) equals optimize(solver="cg"), all bit for bit, with
-     launches A 1, stacked B 1, C 1, F 1 (`launches_by_path["multidevice"]`:
-     BatchSurf describes a rank's frames in one stacked call); then a
-     world of two, this script started twice with `--multidevice-rank` on
-     cuda:0 over gloo (NCCL refuses two ranks on one card), each rank with
-     launches A 1, stacked B 1, C 1, F 1: the batch equal to the single-device
-     one exactly, the BA and the graph within MD_TOL of the world of one, the
-     replicated outputs bit-equal across the ranks, every rank done within
-     MD_RANK_TIMEOUT or all are killed; `mesh_batch8_ms`,
-     `dist_ba_iter_ms` (with the all-reduce's bytes) and
-     `dist_posegraph_iter_ms` (with CG rounds and host reads) at worlds 1
-     and 2, the all-reduces of both counted in `psum`; at the world of one
-     each workload beside its single-device path, like for like, in turns
-     (`multidevice_world1_vs_single`), one graph step and one LM
-     iteration traced (`multidevice_traces`: the all-reduces' host and
-     device time) and
-     `dryrun_multichip(1, full_res=True)`;
-  9. checks the reference stereo pair too, when the environment variable
+     launches A 1, stacked B 1, C 1, F 1 (BatchSurf describes a rank's
+     frames in one stacked call); then a world of two, this script started
+     twice with `--multidevice-rank` on cuda:0 over gloo (NCCL refuses two
+     ranks on one card), each rank with launches A 1, stacked B 1, C 1, F 1:
+     the batch equal to the single-device one exactly, the BA and the graph
+     within MD_TOL of the world of one, the replicated outputs bit-equal
+     across the ranks, every rank done within MD_RANK_TIMEOUT or all are
+     killed; and `dryrun_multichip(1, full_res=True)`;
+  8. checks the reference stereo pair too, when the environment variable
      SURF_REFERENCE_DATA names the directory that holds it.
 
 Every failure raises, and the exit code is then non-zero.  With no CUDA
@@ -166,13 +139,11 @@ device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import ast
-import ctypes
 import dataclasses
 import hashlib
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -190,8 +161,7 @@ from cuda_surf_tpu_torch.ba import core as ba_core
 from cuda_surf_tpu_torch.ba import distributed as ba_distributed
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
-                                        ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
-                                        VO_CONFIG, VO_SEEDS)
+                                        ROTATED_CONFIG, VO_CONFIG, VO_SEEDS)
 from cuda_surf_tpu_torch.io import (MAIN_PAIR, TERRAIN_TRACK, TERRAIN_VO,
                                     main_batch, native, read_pgm,
                                     render_plane_sequence,
@@ -207,20 +177,17 @@ from cuda_surf_tpu_torch.slam import (LoopClosure, ate_rmse,
 from cuda_surf_tpu_torch.slam.tracking import track_inputs
 from cuda_surf_tpu_torch.ops import patch_wavelets
 from cuda_surf_tpu_torch.parallel import global_mesh, initialize_from_env
-from cuda_surf_tpu_torch.parallel.mesh import (all_gather_rows,
-                                                collective_counts, psum)
+from cuda_surf_tpu_torch.parallel.mesh import all_gather_rows
 from cuda_surf_tpu_torch.ops.descriptor import (desc_geometry, describe_plain,
-                                                l2_normalize, sample_frame)
+                                                l2_normalize)
 from cuda_surf_tpu_torch.ops.extrema import (_candidate_mask, _detect_plain,
                                              detect)
-from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
+from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
 from cuda_surf_tpu_torch.ops.hessian import response_pyramid
 from cuda_surf_tpu_torch.ops.integral import integral_image
-from cuda_surf_tpu_torch.ops import matcher_kernel
 from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
 from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
                                                  assign_orientations_plain,
-                                                 orient_geometry,
                                                  orientation_windows,
                                                  top2_windows)
 from cuda_surf_tpu_torch.ops.patch_wavelets import (descriptor_rows,
@@ -228,7 +195,6 @@ from cuda_surf_tpu_torch.ops.patch_wavelets import (descriptor_rows,
                                                     step_rows,
                                                     step_rows_plain)
 from cuda_surf_tpu_torch.types import Keypoints
-from probe_stages import device_ops
 
 # Directory of the reference demo's stereo pair (left.pgm, right.pgm); the
 # pair is checked only when this names a directory that holds both.
@@ -243,8 +209,6 @@ GOLDEN = {"main": "golden_plane_pair.npz",
           "track": "golden_terrain_track.npz",
           "ba": "golden_ba_step.npz",
           "vo": "golden_terrain_vo.npz"}
-WARMUP, RUNS = 10, 50
-SLOW = (1, 3)    # warm-up and timed runs of a twin that takes > 0.1 s
 GAP = 1e-5       # top-two orientation window gap below which either wins
 STEP_SDS = (4, 5, 6, 7, 8)
 TRACK_THRESH = 2e-5   # track_pair's inlier threshold (squared Sampson)
@@ -262,39 +226,6 @@ WINNER_DIST = 1e-3
 VO_AGREE = 0.85
 VO_FAIL_RATE = 1.5 * 11 / 352
 VO_ATE_FACTOR = 1.5
-
-# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, the float32 rate outside the tensor cores, at which the integer
-# and compare operations of these kernels are counted too, and the dense
-# TF32 rate of the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 495e12
-# Operations the function needs, as counted from the twins' expressions:
-# kernel A per output element (8 box sums of 3 adds, dxx / dyy / dxy 8, the
-# determinant 5, the 27-neighbour test 27); kernel B per window sample (the
-# geometry and window test) and on top per live sample (weight 5, two Haar
-# wavelets 14, scaling 4, cell weights 4, 4 cells x values x 3), rotated 12
-# more (the turn of the grid and of the responses); kernel D per live sample
-# (wavelets 14, magnitude 8, atan2 20, bin and weight 6, the 5 histogram
-# sums) and per keypoint for its 72 windows.
-A_OPS = 64
-B_OPS_WINDOW = {True: 8, False: 12}
-B_OPS_LIVE = {"upright64": 51, "rotated64": 59, "upright128": 75,
-              "rotated128": 83}
-D_OPS_LIVE, D_OPS_WINDOWS = 53, 72 * 36
-# kernel E per hypothesis, counted from the twin's expressions: 20 roots x
-# 96 Durand-Kerner rounds of ~150 operations (ten complex differences and
-# their product, a Horner chain of ten complex multiply-adds, a complex
-# division, the step's clamp), 20 candidates x ~1,100 a Gauss-Newton step
-# (80 monomial terms, 40 products of 20, the 3x3 normal equations) and
-# ~10,000 for the constraint matrix, the 10x10 solve and det B(z)
-E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
-# kernel F, counted from the twin's expressions: per mask byte the
-# candidate test and its share of the scans, 2; per fit the 19 stencil
-# indices (4 each) and clamps (2), the gradient and Hessian (19), the
-# pivoted solve (42) and the strength (6), ~140; per slot the fields, 20
-F_OPS_BYTE, F_OPS_FIT, F_OPS_SLOT = 2, 140, 20
 
 
 def emit(obj) -> None:
@@ -324,81 +255,6 @@ def environment() -> dict:
     return env
 
 
-def bound(nbytes: float, ops: float, tf32_ops: float = 0) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate (plus `tf32_ops` over the tensor
-    cores' TF32 rate), whichever is larger."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = (ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S) * 1e3
-    return dict(bound_ms=max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                bound_bytes=int(nbytes), bound_ops=int(ops + tf32_ops))
-
-
-def own_time(fn, bnd: dict) -> dict:
-    """The device time of the kernels alone in one call of the wrapper
-    `fn` (CUDA events around the library call, without the wrapper's eager
-    glue; median of 20 calls after 3), and the share of it that the bound
-    explains."""
-    us = []
-    for i in range(23):
-        with _build.record_launches() as rec:
-            fn()
-        torch.cuda.synchronize()
-        if not rec:
-            raise AssertionError("own_time: the wrapper launched no kernel")
-        if i >= 3:
-            us.append(sum(a.elapsed_time(b) for _, a, b in rec) * 1e3)
-    us = statistics.median(us)
-    return dict(bnd, kernel_us=us, bound_share=bnd["bound_ms"] * 1e3 / us)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def time_ms(fn, warmup=WARMUP, runs=RUNS) -> float:
-    """Median per-call device time of `fn` over `runs` calls, each between
-    two CUDA events, after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def time_wall_ms(fn, warmup=WARMUP, runs=RUNS) -> float:
-    """Median host-clock time of `fn` plus a device synchronise: what a
-    caller waits for one result, launch overhead included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def time_pair(kernel_fn, plain_fn, plain_runs=(WARMUP, RUNS)):
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain
-    on the same card; each is the mean of its two turns' medians."""
-    p1 = time_ms(plain_fn, *plain_runs)
-    k1 = time_ms(kernel_fn)
-    k2 = time_ms(kernel_fn)
-    p2 = time_ms(plain_fn, *plain_runs)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
 def circ_diff(a, b):
     """|a - b| on the circle, in radians."""
     return (torch.remainder(a - b + math.pi, 2 * math.pi) - math.pi).abs()
@@ -424,19 +280,9 @@ def check_kernel_a(cfg, frames_dev, tag="main"):
             n_cand += int(mask_p.sum())
     if n_cand == 0:
         raise AssertionError("kernel A: the frames produced no candidates")
-    ii = integral_image(frames_dev[0], cfg.doubled)
-    ms_k, ms_p = time_pair(
-        lambda: fused_pyramid(ii, cfg, h, w),
-        lambda: [_candidate_mask(p, s, cfg) for p, s in
-                 zip(response_pyramid(ii, cfg, h, w), scheds)])
-    n_out = sum(p.numel() for p in pyr_k)
     emit(dict(phase="kernel_check", kernel="A", config=tag,
               layers_bit_exact=True, masks_equal=True, max_abs_err=err,
               candidates=n_cand, octaves=cfg.noctaves))
-    # in: the integral image; out: float32 layers and one-byte masks
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                **own_time(lambda: fused_pyramid(ii, cfg, h, w),
-                           bound(nbytes(ii) + 5 * n_out, A_OPS * n_out)))
 
 
 def check_kernel_a_stack(cfg, frames_dev):
@@ -446,9 +292,9 @@ def check_kernel_a_stack(cfg, frames_dev):
     h, w = frames_dev[0].shape
     scheds = cfg.hessian_schedule(h, w)
     ii = torch.stack([integral_image(f, cfg.doubled) for f in frames_dev])
-    before = fused_pyramid.launches
+    before = _build.launch_counts["surf_pyramid"]
     pyr_b, masks_b = fused_pyramid(ii, cfg, h, w)
-    if fused_pyramid.launches != before + 1:
+    if _build.launch_counts["surf_pyramid"] != before + 1:
         raise AssertionError("kernel A on a stack: not one launch")
     for f in range(len(frames_dev)):
         pyr_1, masks_1 = fused_pyramid(ii[f], cfg, h, w)
@@ -463,53 +309,9 @@ def check_kernel_a_stack(cfg, frames_dev):
                     and torch.equal(masks_b[o][f], masks_1[o])):
                 raise AssertionError(f"kernel A on a stack: frame {f} octave "
                                      f"{o}: masks differ")
-    twin = lambda: [[_candidate_mask(p, s, cfg) for p, s in
-                     zip(response_pyramid(f, cfg, h, w), scheds)] for f in ii]
-    ms_k, ms_p = time_pair(lambda: fused_pyramid(ii, cfg, h, w), twin, SLOW)
-    n_out = sum(p.numel() for p in pyr_b)
     emit(dict(phase="kernel_check", kernel="A_stack", frames=len(frames_dev),
               layers_bit_exact=True, masks_equal=True,
               equals_per_frame_call=True, launches=1))
-    return dict(frames=len(frames_dev), ms=ms_k, plain_ms=ms_p,
-                **own_time(lambda: fused_pyramid(ii, cfg, h, w),
-                           bound(nbytes(ii) + 5 * n_out, A_OPS * n_out)))
-
-
-def occupancy(cfgs, h, w):
-    """Blocks and warps of the redesigned kernels that fit one SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the built kernels):
-    kernel A at each configuration's dynamic shared memory, the describe
-    kernel in each mode, kernel C at D = 64 and 128 (entry
-    surf_best2_occupancy), kernel D (surf_orient_occupancy)."""
-    out = {}
-
-    def ask(entry, *args):
-        blocks = ctypes.c_int(0)
-        _build.launch(entry, *args, ctypes.byref(blocks))
-        return blocks.value
-
-    for name in ("main", "doubled"):
-        c = cfgs[name]
-        ih, iw = (2 * h, 2 * w) if c.doubled else (h + 1, w + 1)
-        smem = pyramid_plan(c, h, w, ih, iw, "cuda:0").smem_bytes
-        blocks = ask("surf_pyramid_occupancy", smem)
-        out[f"A_{name}"] = dict(blocks_per_sm=blocks, warps_per_sm=8 * blocks,
-                                dynamic_smem_bytes=smem)
-    for mode, kw in B_MODES.items():
-        blocks = ask("surf_describe_occupancy", int(kw["upright"]),
-                     8 if kw["extended"] else 4)
-        out[f"describe_{mode}"] = dict(blocks_per_sm=blocks,
-                                       warps_per_sm=4 * blocks)
-    for depth in (64, 128):
-        blocks, warps = matcher_kernel.occupancy(depth)
-        out[f"C_d{depth}"] = dict(blocks_per_sm=blocks,
-                                  warps_per_sm=warps * blocks)
-    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
-    _build.launch("surf_orient_occupancy", ctypes.byref(blocks),
-                  ctypes.byref(warps))
-    out["D"] = dict(blocks_per_sm=blocks.value,
-                    warps_per_sm=warps.value * blocks.value)
-    return out
 
 
 def path_keypoints(frames_dev, cfg):
@@ -522,19 +324,6 @@ def path_keypoints(frames_dev, cfg):
         ori = assign_orientations(ii, cfg, kp.x, kp.y, kp.scale, kp.valid)
         out.append((ii, kp, ori))
     return out
-
-
-def orient_live_samples(ii, cfg, kp) -> int:
-    """Samples of the orientation discs that lie inside the frame."""
-    cx, cy, step, s = (a[:, None] for a in orient_geometry(
-        kp.x, kp.y, kp.scale, cfg.doubled))
-    g = torch.arange(-ORADIUS, ORADIUS + 1, device=ii.device)
-    y1, x1 = g.repeat_interleave(g.numel()), g.repeat(g.numel())
-    xx, yy = cx + x1 * step, cy + y1 * step
-    ih, iw = ii.shape
-    ok = ((yy + s + 2 < ih) & (yy - s > -1) & (xx + s + 2 < iw) & (xx - s > -1)
-          & (y1 * y1 + x1 * x1 < ORADIUS_SQ) & kp.valid[:, None])
-    return int(ok.sum())
 
 
 def check_kernel_d(cfg, kps_dev, tag="main"):
@@ -568,46 +357,15 @@ def check_kernel_d(cfg, kps_dev, tag="main"):
     if worst > 1e-4 or worst_near > 1e-4:
         raise AssertionError(f"kernel D: |d ori| {worst} (near ties "
                              f"{worst_near}) > 1e-4 rad")
-    ii, kp, _ = kps_dev[0]
-    args = (kp.x, kp.y, kp.scale, kp.valid)
-    ms_k, ms_p = time_pair(lambda: assign_orientations(ii, cfg, *args),
-                           lambda: assign_orientations_plain(ii, cfg, *args))
     emit(dict(phase="kernel_check", kernel="D", config=tag, keypoints=n,
               max_abs_err=worst, near_ties=n_near,
               near_tie_max_err=worst_near, bit_identical=True))
-    K = kp.capacity
-    ops = (D_OPS_LIVE * orient_live_samples(ii, cfg, kp)
-           + D_OPS_WINDOWS * int(kp.valid.sum()))
-    # in: the integral image, x / y / scale / valid per slot, the tables;
-    # out: the angles
-    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p,
-                **own_time(lambda: assign_orientations(ii, cfg, *args),
-                           bound(nbytes(ii) + 17 * K + 4 * 299, ops)))
 
 
 B_MODES = {"upright64": dict(upright=True, extended=False),
            "rotated64": dict(upright=False, extended=False),
            "upright128": dict(upright=True, extended=True),
            "rotated128": dict(upright=False, extended=True)}
-
-
-def describe_bound(ii, cfg, mode, geom, valid, rows_out, frame=None):
-    """Kernel B's bound on these keypoints: the window and live sample
-    counts come from the twin's own sample frame."""
-    ih, iw = ii.shape[-2:]
-    irad = torch.clamp(geom[4], max=cfg.max_iradius)
-    window = int(((2 * irad + 1) ** 2)[valid].sum())
-    live = 0
-    for k0 in range(0, valid.shape[0], 1024):
-        part = [None if g is None else g[k0:k0 + 1024] for g in geom]
-        live += int(sample_frame(cfg, ih, iw, *part,
-                                 valid[k0:k0 + 1024])[2].sum())
-    K = valid.shape[0]
-    per_slot = 4 * (6 + (3 if cfg.upright else 5) + (frame is not None))
-    return dict(window_samples=window, live_samples=live,
-                **bound(nbytes(ii) + per_slot * K + 160 + 4 * rows_out,
-                        B_OPS_WINDOW[cfg.upright] * window
-                        + B_OPS_LIVE[mode] * live))
 
 
 def rows_against_twin(name, rows_k, rows_p, valid):
@@ -630,8 +388,7 @@ def rows_against_twin(name, rows_k, rows_p, valid):
 def check_kernel_b(config, kps_dev, mode_names, tag="main"):
     """Kernel B vs descriptor.describe_plain in the given modes, on the
     frames' keypoints (rotated modes at kernel D's orientations).
-    -> (result, the last mode's normalised rows of every frame)."""
-    modes = {}
+    -> the last mode's normalised rows of every frame."""
     for mode in mode_names:
         cfg = SurfConfig(**dict(config, **B_MODES[mode]))
         worst_cos, worst_err, n_rows, normed = 1.0, 0.0, 0, []
@@ -649,24 +406,10 @@ def check_kernel_b(config, kps_dev, mode_names, tag="main"):
             worst_cos, worst_err = min(worst_cos, cos), max(worst_err, err)
             n_rows += n
             normed.append(l2_normalize(rows_k))
-        ii, kp, ori = kps_dev[0]
-        geom = desc_geometry(cfg, kp.x, kp.y, kp.scale, ori)
-        ms_k, ms_p = time_pair(
-            lambda: descriptor_rows(ii, cfg, *geom, kp.valid),
-            lambda: describe_plain(ii, cfg, *geom, kp.valid))
-        modes[mode] = dict(
-            ms=ms_k, plain_ms=ms_p, min_cosine=worst_cos,
-            max_abs_err=worst_err,
-            **own_time(lambda: descriptor_rows(ii, cfg, *geom, kp.valid),
-                       describe_bound(ii, cfg, mode, geom, kp.valid,
-                                      rows_k.numel())))
         emit(dict(phase="kernel_check", kernel="B", config=tag, mode=mode,
                   rows=n_rows, min_cosine=worst_cos, max_abs_err=worst_err,
                   bit_identical=True))
-    main = modes[mode_names[0]]
-    return dict(main, max_abs_err=max(m["max_abs_err"]
-                                      for m in modes.values()),
-                modes=modes), normed
+    return normed
 
 
 def check_kernel_b_stacked(frames_dev):
@@ -688,7 +431,6 @@ def check_kernel_b_stacked(frames_dev):
     P = kb.capacity
     frame = torch.arange(B, dtype=torch.int32,
                          device=ii.device).repeat_interleave(P)
-    modes = {}
     for mode in ("upright64", "rotated64"):
         cfg = SurfConfig(**dict(MAIN_CONFIG, **B_MODES[mode]))
         geom = desc_geometry(cfg, flat(kb.x), flat(kb.y), flat(kb.scale),
@@ -717,21 +459,10 @@ def check_kernel_b_stacked(frames_dev):
         if out[:2 * P].any() or not torch.equal(out[2 * P:], rows[2 * P:]):
             raise AssertionError(f"stacked B {mode}: a frame index outside "
                                  "the stack was not masked")
-        ms_k, ms_p = time_pair(
-            lambda: stacked_rows(ii, cfg, *geom, valid, frame=frame),
-            lambda: describe_plain(ii, cfg, *geom, valid, frame=frame), SLOW)
-        modes[mode] = dict(
-            ms=ms_k, plain_ms=ms_p, min_cosine=cos, max_abs_err=err,
-            **own_time(lambda: stacked_rows(ii, cfg, *geom, valid,
-                                            frame=frame),
-                       describe_bound(ii, cfg, mode, geom, valid,
-                                      rows.numel(), frame=frame)))
         emit(dict(phase="kernel_check", kernel="B_stacked", mode=mode,
                   frames=B, slots=B * P, rows=n, min_cosine=cos,
                   max_abs_err=err, bit_identical=True,
                   equals_single_frame_rows=True))
-    return dict(modes["upright64"], modes=modes,
-                max_abs_err=max(m["max_abs_err"] for m in modes.values()))
 
 
 def check_kernel_b_step(kps_dev):
@@ -741,7 +472,7 @@ def check_kernel_b_step(kps_dev):
     bit-identical across launches; a cap below the eligible count takes
     the first `cap` in order and leaves the rest; the whole route
     (DEC_STEPS set) returns kernel B's rows exactly."""
-    worst_cos, worst_err, taken_by_step, timed = 1.0, 0.0, {}, None
+    worst_cos, worst_err, taken_by_step, overflowed = 1.0, 0.0, {}, 0
     for mode in ("upright64", "rotated64"):
         cfg = SurfConfig(**dict(MAIN_CONFIG, **B_MODES[mode]))
         for ii, kp, ori in kps_dev:
@@ -780,8 +511,7 @@ def check_kernel_b_step(kps_dev):
                             rows_c[~taken_c].any():
                         raise AssertionError(f"{name}: cap {cap} did not "
                                              "take the first in order")
-                    if timed is None and mode == "upright64":
-                        timed = (ii, cfg, geom, v, sd, int(taken.sum()))
+                    overflowed += 1
             patch_wavelets.DEC_STEPS = STEP_SDS
             try:
                 routed = descriptor_rows(ii, cfg, *geom, v)
@@ -790,26 +520,15 @@ def check_kernel_b_step(kps_dev):
             if not torch.equal(routed, ref):
                 raise AssertionError(f"step route {mode}: routed rows differ "
                                      "from kernel B's")
-    if not taken_by_step or max(taken_by_step.values()) == 0 or timed is None:
+    if not taken_by_step or max(taken_by_step.values()) == 0 or \
+            not overflowed:
         raise AssertionError("step kernel: the pair has no keypoint of "
-                             f"steps {STEP_SDS}")
-    ii, cfg, geom, v, sd, n_taken = timed
-    ms_k, ms_p = time_pair(
-        lambda: step_rows(ii, cfg, *geom, v, elig=v, sd=sd),
-        lambda: step_rows_plain(ii, cfg, *geom, v, elig=v, sd=sd))
-    only = v & (geom[2] == sd)
-    cap = min(patch_wavelets.STEP_CAP, v.shape[0])
-    bnd = own_time(lambda: step_rows(ii, cfg, *geom, v, elig=v, sd=sd),
-                   describe_bound(ii, cfg, "upright64", geom, only,
-                                  (cap + 1) * cfg.nfeatures))
+                             f"steps {STEP_SDS}, or too few to overflow a cap")
     emit(dict(phase="kernel_check", kernel="B_step", steps=list(STEP_SDS),
               cap=patch_wavelets.STEP_CAP, taken_by_step=taken_by_step,
               min_cosine=worst_cos, max_abs_err=worst_err,
               equals_kernel_b_rows=True, bit_identical=True,
-              overflow_left_untaken=True, timed_step=sd,
-              timed_taken=n_taken))
-    return dict(max_abs_err=worst_err, min_cosine=worst_cos, ms=ms_k,
-                plain_ms=ms_p, timed_step=sd, timed_taken=n_taken, **bnd)
+              overflow_left_untaken=True, overflow_cases=overflowed))
 
 
 def f_inputs(cfg, frames):
@@ -822,35 +541,20 @@ def f_inputs(cfg, frames):
     return pyr, masks, cfg.hessian_schedule(h, w), stack.shape[0]
 
 
-def f_bound(masks, out, walker_set) -> dict:
-    """Kernel F's bound on these inputs: the masks read once, each fit's 19
-    stencil values, each slot's 25 bytes of fields written once, and the
-    operations; every candidate fits once and each walker of the walker
-    set at least once more."""
-    fits = int(out["count"]) + min(int(out["walkers"]), walker_set)
-    mask_bytes = sum(m.numel() for m in masks)
-    slots = out["valid"].numel()
-    return bound(mask_bytes + 19 * 4 * fits + 25 * slots,
-                 F_OPS_BYTE * mask_bytes + F_OPS_FIT * fits
-                 + F_OPS_SLOT * slots)
-
-
 def check_kernel_f(cases, card):
     """Kernel F vs the twin `_detect_plain` on the card, every output field
-    and both counts bit for bit (floats as their bits), one count on
-    detect.launches a call; each case (name, config, frame or stack) timed
-    beside the twin, with F's own time against its bound, and whether the
-    step-1 movers overflowed the max(cap // 8, 64) walker set."""
+    and both counts bit for bit (floats as their bits), one launch a call;
+    each case (name, config, frame or stack) with whether the step-1
+    movers overflowed the max(cap // 8, 64) walker set."""
     rows = {}
     for name, cfg, frames in cases:
         pyr, masks, sched, B = f_inputs(cfg, frames)
-        run = lambda: detect(pyr, sched, cfg, masks, nframes=B)
-        twin = lambda: _detect_plain(pyr, sched, cfg, masks, nframes=B)
-        before = detect.launches
-        got = run()
-        if detect.launches != before + 1:
+        before = _build.launch_counts["surf_extrema"]
+        got = detect(pyr, sched, cfg, masks, nframes=B)
+        if _build.launch_counts["surf_extrema"] != before + 1:
             raise AssertionError(f"kernel F {name}: not one launch a call")
-        for k, want in twin().items():
+        twin = _detect_plain(pyr, sched, cfg, masks, nframes=B)
+        for k, want in twin.items():
             a, b = got[k], want
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
@@ -858,28 +562,11 @@ def check_kernel_f(cases, card):
                 raise AssertionError(f"kernel F {name}: {k} differs from the "
                                      "twin")
         walker_set = max(cfg.max_candidates * B // 8, 64)
-        ms_k, ms_p = time_pair(run, twin)
         rows[name] = dict(frames=B, count=int(got["count"]),
                           walkers=int(got["walkers"]), walker_set=walker_set,
-                          overflow=int(got["walkers"]) > walker_set, ms=ms_k,
-                          plain_ms=ms_p,
-                          **own_time(run, f_bound(masks, got, walker_set)))
-    emit(dict(phase="kernel_check", kernel="F", bit_equal=True, cases={
-        n: {k: r[k] for k in ("frames", "count", "walkers", "walker_set",
-                              "overflow")} for n, r in rows.items()},
-        card=card))
-    first = next(iter(rows.values()))
-    return dict(first, max_abs_err=0.0, cases=rows)
-
-
-def c_bound(d1, d2, valid2):
-    """Kernel C's bound: a multiply and an add per score element and depth,
-    three such products on the tensor cores as 3xTF32, counted at the dense
-    TF32 rate, then the top-2 compares at the float32 rate."""
-    rows = d1[..., 0].numel()
-    scores = rows * d2.shape[-2]
-    return bound(nbytes(d1, d2, valid2) + 12 * rows, 2 * scores,
-                 3 * 2 * scores * d1.shape[-1])
+                          overflow=int(got["walkers"]) > walker_set)
+    emit(dict(phase="kernel_check", kernel="F", bit_equal=True, cases=rows,
+              card=card))
 
 
 def c_against_twin(name, out, twin):
@@ -900,7 +587,7 @@ def check_kernel_e(card):
     """Kernel E vs the twin on the 64 JAX draws of the track fixture (128
     hypotheses a call, gn_iters=4, as track_pair calls it): the share of
     candidates equal bit for bit, `valid` equal, the largest distance up to
-    sign; then E beside the twin on the first draw, and E's own time."""
+    sign."""
     g = np.load(os.path.join(DATA, GOLDEN["track"]))
     intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
     surf = Surf(SurfConfig(**MAIN_CONFIG), device="cuda")
@@ -924,62 +611,40 @@ def check_kernel_e(card):
     if valid_eq != slots or err > 1e-4:
         raise AssertionError(f"kernel E: valid equal on {valid_eq} of "
                              f"{slots} slots, distance up to {err}")
-    s1, s2 = x1[samples[0]], x2[samples[0]]
-    run = lambda: five_point(s1, s2, gn_iters=4)
-    twin = lambda: _five_point_plain(s1, s2, gn_iters=4)
-    ms_k, ms_p = time_pair(run, twin, SLOW)
-    h = s1.shape[0]
-    bnd = bound(nbytes(s1, s2, *run()),
-                h * (E_OPS_DK + 4 * E_OPS_GN_STEP + E_OPS_MATRICES))
     emit(dict(phase="kernel_check", kernel="E", draws=len(samples),
-              hypotheses=h, valid_candidates=n, bit_equal=exact,
-              valid_equal_slots=valid_eq, max_abs_err=err, card=card))
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bit_equal=exact,
-                valid_candidates=n, **own_time(run, bnd))
+              hypotheses=int(samples[0].shape[0]), valid_candidates=n,
+              bit_equal=exact, valid_equal_slots=valid_eq, max_abs_err=err,
+              card=card))
 
 
 def check_kernel_c(d1, d2, valid2):
     """Kernel C vs matcher_kernel._best2_plain at 4096 x 4096 x D."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the twin's matmul must run in full float32")
-    run = lambda: fused_best2(d1, d2, valid2)
-    twin = lambda: _best2_plain(d1, d2, valid2)
-    err, n_clear = c_against_twin("kernel C", run(), twin())
-    ms_k, ms_p = time_pair(run, twin)
-    # a part of the function, not the function: the product alone, which
-    # writes the score matrix that kernel C never stores and takes no top-2
-    product_ms = time_ms(lambda: torch.matmul(d1, d2.T))
+    err, n_clear = c_against_twin("kernel C", fused_best2(d1, d2, valid2),
+                                  _best2_plain(d1, d2, valid2))
     emit(dict(phase="kernel_check", kernel="C", max_abs_err=err,
               rows=int(d1.shape[0]), depth=int(d1.shape[1]),
               index_checked=n_clear))
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                product_only_ms=product_ms,
-                **own_time(run, c_bound(d1, d2, valid2)))
 
 
 def check_kernel_c_pairs(d1, d2, valid2):
     """Kernel C on P pairs in one launch, (P, 4096, 64) x (P, 4096, 64):
-    against the twin, and equal bit for bit to P launches of one pair; one
-    launch timed beside the P."""
+    against the twin, and equal bit for bit to P launches of one pair."""
     P = d1.shape[0]
-    one = lambda: fused_best2(d1, d2, valid2)
-    each = lambda: [fused_best2(d1[p], d2[p], valid2[p]) for p in range(P)]
-    before = fused_best2.launches
-    out = one()
-    if fused_best2.launches != before + 1:
+    before = _build.launch_counts["surf_best2"]
+    out = fused_best2(d1, d2, valid2)
+    if _build.launch_counts["surf_best2"] != before + 1:
         raise AssertionError("kernel C on pairs: not one launch")
     err, _ = c_against_twin(f"kernel C, {P} pairs", out,
                             _best2_plain(d1, d2, valid2))
-    for p, single in enumerate(each()):
+    for p in range(P):
+        single = fused_best2(d1[p], d2[p], valid2[p])
         if not all(torch.equal(a[p], b) for a, b in zip(out, single)):
             raise AssertionError(f"kernel C: pair {p} of {P} in one launch "
                                  "differs from its own launch")
-    res = dict(max_abs_err=err, pairs=P,
-               **own_time(one, c_bound(d1, d2, valid2)))
-    res["each_kernel_us"] = own_time(each, res)["kernel_us"]
     emit(dict(phase="kernel_check", kernel="C_pairs", pairs=P,
               equals_single_launches=True, launches=1, max_abs_err=err))
-    return res
 
 
 def check_keypoints_against_golden(f, kp, golden):
@@ -1036,21 +701,23 @@ def load_golden(name, config):
     return golden
 
 
-KERNELS = {"A": fused_pyramid, "B": single_rows, "B_stacked": stacked_rows,
-           "B_step": step_rows, "C": fused_best2, "D": assign_orientations,
-           "E": five_point, "F": detect}
+# each kernel's entry point in `_build.launch_counts`
+KERNELS = {"A": "surf_pyramid", "B": "surf_describe",
+           "B_stacked": "surf_describe_stacked", "B_step": "surf_describe_step",
+           "C": "surf_best2", "D": "surf_orient", "E": "surf_fivepoint",
+           "F": "surf_extrema"}
 
 
-def reset_counts():
-    for k in KERNELS.values():
-        k.launches = 0
+def launches_since(snap) -> dict:
+    """Each kernel's launches since `snap`, a `_build.launch_counts.copy()`."""
+    return {k: _build.launch_counts[e] - snap[e] for k, e in KERNELS.items()}
 
 
-def read_counts(name, expected):
-    """The launch counts since `reset_counts`, held to `expected` by
+def read_counts(name, expected, snap):
+    """The launch counts since `snap`, held to `expected` by
     check_launches."""
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    counts = launches_since(snap)
     check_launches(name, counts, expected)
     return counts
 
@@ -1083,14 +750,13 @@ def check_descriptors(name, kp, d, cfg):
 
 
 def run_path(name, cfg, frames, golden, expected):
-    """Surf on the pair + match, counted; -> (kps, descs, matches, counts)
-    with every kernel's launch count over this run alone.  The path must
+    """Surf on the pair + match, counted; -> (kps, descs).  The path must
     launch each kernel of `expected` and no other."""
-    reset_counts()
+    snap = _build.launch_counts.copy()
     surf = Surf(cfg, device="cuda")
     kps, descs = zip(*[surf.detect_and_compute(f) for f in frames])
     m = surf.match(kps[0], descs[0], kps[1], descs[1])
-    counts = read_counts(name, expected)
+    counts = read_counts(name, expected, snap)
     for f, (kp, d) in enumerate(zip(kps, descs)):
         check_descriptors(name, kp, d, cfg)
         check_keypoints_against_golden(f, kp, golden)
@@ -1099,7 +765,7 @@ def run_path(name, cfg, frames, golden, expected):
               golden_keypoints=golden["counts"].tolist(),
               matches=int(m.valid.sum()), mean_best=mean_best,
               golden_mean_best=float(golden["mean_best"]), launches=counts))
-    return kps, descs, m, counts
+    return kps, descs
 
 
 def run_batch_path(cfg, frames, golden):
@@ -1112,13 +778,14 @@ def run_batch_path(cfg, frames, golden):
     B = frames.shape[0]
     if int(golden["n_frames"]) != B:
         raise AssertionError("the batch fixture holds another frame count")
-    reset_counts()
+    snap = _build.launch_counts.copy()
     kb, db = Surf(cfg, device="cuda").detect_and_compute_batch(frames)
     bs = BatchSurf(cfg, device="cuda")
     frames_of = lambda k, sl: Keypoints(*[a[sl] for a in k])
     m = bs.match(frames_of(kb, slice(0, B - 1)), db[:-1],
                  frames_of(kb, slice(1, B)), db[1:])
-    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1, "F": 1})
+    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1, "F": 1},
+                         snap)
     if db.shape != (B, cfg.max_pts, cfg.nfeatures) or \
             kb.count.shape != (B,) or kb.x.shape != (B, cfg.max_pts):
         raise AssertionError("batch: outputs malformed")
@@ -1152,7 +819,7 @@ def run_batch_path(cfg, frames, golden):
               mean_best=mean_best,
               golden_mean_best=golden["mean_best"].tolist(),
               equals_single_frame_path=True, launches=counts))
-    return kb, db, counts
+    return kb, db
 
 
 def run_step_routed_path(cfg, frames, golden, descs_main):
@@ -1161,7 +828,7 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
     to the main path's exactly."""
     patch_wavelets.DEC_STEPS = STEP_SDS
     try:
-        kps, descs, _, counts = run_path(
+        _, descs = run_path(
             "step_routed", cfg, frames, golden,
             {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1, "F": 2})
     finally:
@@ -1170,7 +837,6 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
         if not torch.equal(a, b):
             raise AssertionError("step-routed descriptors differ from the "
                                  "main path's")
-    return counts
 
 
 def pose_gap(n, R, t, n_ref, R_ref, t_ref) -> dict:
@@ -1217,11 +883,10 @@ def ransac_beside_jax(x1, x2, good, raw, E_j, win):
             float(torch.where(ok[slots], dist, math.inf).min()), *poses)
 
 
-def run_track_path(card):
+def run_track_path():
     """Surf + track_pair on the terrain fixture's pair with the JAX run's
     draw, counted; the 64 JAX draws of the fixture (the first is that
-    draw), each through JAX's winner and whole; then `track_ms` on the
-    port's own draws."""
+    draw), each through JAX's winner and whole."""
     g = np.load(os.path.join(DATA, GOLDEN["track"]))
     if str(g["config"]) != repr(sorted(MAIN_CONFIG.items())) or \
             str(g["cell"]) != repr(sorted(TERRAIN_TRACK.items())):
@@ -1230,10 +895,11 @@ def run_track_path(card):
     intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
     raw = torch.as_tensor(g["raw"]).cuda()
     surf = Surf(SurfConfig(**MAIN_CONFIG), device="cuda")
-    reset_counts()
+    snap = _build.launch_counts.copy()
     (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
     res = track_pair(k1, d1, k2, d2, intr, raw=raw)
-    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1, "F": 2})
+    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1, "F": 2},
+                         snap)
     kp_counts = [int(k1.count), int(k2.count)]
     if kp_counts != g["counts"].tolist():
         raise AssertionError(f"track: keypoints {kp_counts}, JAX golden "
@@ -1301,22 +967,11 @@ def run_track_path(card):
             draws["refits_from_jax_winner_agree"] < WINNER_AGREE or \
             abs(med_n - med_j) > 0.02 * med_j:
         raise AssertionError(f"track: over the JAX draws {draws}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    fn = lambda: track_pair(k1, d1, k2, d2, intr, gen)
-    ms, wall = time_ms(fn), time_wall_ms(fn)
-    ops, us = device_ops(fn)
-    emit(dict(metric="track_ms", value=ms, wall_ms=wall, device_ops=ops,
-              device_us=us, busy_share=None if us is None else us / 1e3 / ms,
-              what="track_pair (match, filter, 5-point RANSAC over 4096 "
-              "slots x 128 hypotheses, pose) on the terrain pair's "
-              "card-resident keypoints, the port's own draws", card=card))
-    return counts
 
 
-def run_ba_phase(card):
+def run_ba_phase():
     """One lm_step and run_lm on bench.py's BA problem against the JAX
-    fixture; then `ba_step_ms`."""
+    fixture."""
     g = np.load(os.path.join(DATA, GOLDEN["ba"]))
     (ci, uv, mask), (R, t, X) = ba_problem()
     prob = ba_core.problem_from_numpy(ci, uv, mask, "cuda")
@@ -1341,12 +996,6 @@ def run_ba_phase(card):
     emit(dict(phase="ba", cameras=C, points=int(X.shape[0]),
               max_rel_err_state=worst, **costs,
               golden={k: float(g[k]) for k in costs}))
-    fn = lambda: ba_core.lm_step(state, prob, lam, C)
-    ms, wall = time_ms(fn), time_wall_ms(fn)
-    ops, us = device_ops(fn)
-    emit(dict(metric="ba_step_ms", value=ms, wall_ms=wall, device_ops=ops,
-              device_us=us, what=f"one lm_step, {C} cameras x "
-              f"{int(X.shape[0])} points", card=card))
 
 
 def vo_summary(ates, inliers, jax_ates, jax_inliers):
@@ -1368,11 +1017,11 @@ def vo_summary(ates, inliers, jax_ates, jax_inliers):
                 min_inliers=inl.min(1).tolist())
 
 
-def run_vo_path(card):
+def run_vo_path():
     """SlamPipeline over the 12-frame terrain orbit, plain, ba_refine and
     window_ba=4, each at the JAX fixture's seeds on the JAX pipeline's own
     draws (its key stream, `raws`) and each run counted, beside the JAX
-    runs of golden_terrain_vo.npz.  -> the first plain run's counts."""
+    runs of golden_terrain_vo.npz."""
     g = np.load(os.path.join(DATA, GOLDEN["vo"]))
     frames, centres, intr = render_terrain_sequence(**TERRAIN_VO)
     if hashlib.sha256(frames.tobytes()).hexdigest() != \
@@ -1380,30 +1029,27 @@ def run_vo_path(card):
         raise AssertionError("vo: the fixture is for other frames or seeds; "
                              "rerun tests/make_torch_golden.py vo")
     raws = torch.as_tensor(g["raws"]).cuda()
-    runs, counts, frame_ms = {}, None, []
+    runs, counts = {}, None
     for run, kw in (("plain", {}), ("ba_refine", dict(ba_refine=True)),
                     ("window_ba", dict(window_ba=4))):
         ates, inliers = [], []
         for seed, seed_raws in zip(VO_SEEDS, raws):
             pipe = SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
                                 seed=seed, device="cuda", **kw)
-            reset_counts()
+            snap = _build.launch_counts.copy()
             for i, f in enumerate(frames):
-                before = {k: fn.launches for k, fn in KERNELS.items()}
-                t0 = time.perf_counter()
+                before = _build.launch_counts.copy()
                 pipe.process(f, raw=seed_raws[i - 1] if i else None)
                 torch.cuda.synchronize()
-                if run == "plain" and i:
-                    frame_ms.append((time.perf_counter() - t0) * 1e3)
-                got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
-                check_launches(f"vo {run} seed {seed} frame {i}", got,
+                check_launches(f"vo {run} seed {seed} frame {i}",
+                               launches_since(before),
                                dict(A=1, B=1, F=1, **({"C": 1, "E": 1} if i
                                                       else {})))
             total = read_counts(f"vo {run}", {"A": len(frames),
                                               "B": len(frames),
                                               "C": len(frames) - 1,
                                               "E": len(frames) - 1,
-                                              "F": len(frames)})
+                                              "F": len(frames)}, snap)
             counts = counts or total
             traj = pipe.trajectory()
             if not np.isfinite(traj).all():
@@ -1430,11 +1076,6 @@ def run_vo_path(card):
                   first={"A": 1, "B": 1, "F": 1},
                   after={"A": 1, "B": 1, "C": 1, "E": 1, "F": 1}),
               launches=counts))
-    emit(dict(metric="vo_frame_ms", value=statistics.median(frame_ms),
-              what="SlamPipeline.process, plain, one 200x280 frame of the "
-              "terrain orbit after the first, host clock, median over the "
-              "plain runs' frames", card=card))
-    return counts
 
 
 # The pose graphs against golden_posegraph.npz (the JAX optimize on the
@@ -1457,24 +1098,12 @@ def posegraph_case(g, case):
         meta["n_iters"]
 
 
-def gn_step(mod, graph, solver, table, stats=None):
-    """One Gauss-Newton step's increment at the graph's state."""
-    n = graph.R.shape[0]
-    blocks = (mod._edge_blocks(graph, graph.s, graph.R, graph.t)
-              if mod is sim3graph else mod._edge_blocks(graph, graph.R,
-                                                        graph.t))
-    return posegraph.solve_step(graph, n, solver, 1e-6, max(8 * n, 200),
-                                None, None, blocks, table, stats)
-
-
-def run_posegraph_phase(card):
+def run_posegraph_phase():
     """The SE(3) and Sim(3) graphs of golden_posegraph.npz on the card:
     each optimised twice (the same bits: no float atomics) and held to the
-    JAX result and cost curve; then `posegraph_iter_ms`, one Gauss-Newton
-    step at the input state, with its device operations, CG rounds and host
-    reads.  No kernel runs here."""
+    JAX result and cost curve.  No kernel runs here."""
     g = np.load(os.path.join(DATA, "golden_posegraph.npz"))
-    reset_counts()
+    snap = _build.launch_counts.copy()
     cases = {}
     for case in PG_CASES:
         mod, graph, solver, n_iters = posegraph_case(g, case)
@@ -1505,14 +1134,6 @@ def run_posegraph_phase(card):
                       + PG_TOL["cost_floor"] * cj[0]):
             raise AssertionError(f"posegraph {case}: costs {cp.tolist()}, "
                                  f"JAX {cj.tolist()}")
-        table = posegraph.segment_table(graph, graph.R.shape[0]) \
-            if solver == "cg" else None
-        step_stats = {}
-        gn_step(mod, graph, solver, table, step_stats)
-        fn = lambda: gn_step(mod, graph, solver, table)
-        runs_ms = (2, 5) if solver == "cg" else (WARMUP, RUNS)
-        ms, wall = time_ms(fn, *runs_ms), time_wall_ms(fn, *runs_ms)
-        ops, us = device_ops(fn)
         cases[case] = dict(
             nodes=int(graph.R.shape[0]), edges=int(graph.edge_i.shape[0]),
             solver=solver, n_iters=n_iters, max_abs_err=err,
@@ -1521,17 +1142,9 @@ def run_posegraph_phase(card):
             jax_cg_rounds=(g[f"rounds_{case}"].tolist()
                            if solver == "cg" else None),
             host_reads=stats.get("host_reads"))
-        emit(dict(metric="posegraph_iter_ms", case=case, value=ms,
-                  wall_ms=wall, device_ops=ops, device_us=us,
-                  cg_rounds=step_stats.get("cg_rounds", [0])[0],
-                  cg_chunk=posegraph.CG_CHUNK if solver == "cg" else None,
-                  host_reads=step_stats.get("host_reads", [0])[0],
-                  what=f"one Gauss-Newton step of {case} ({solver}) at its "
-                  "input state: edge blocks + solve", card=card))
-    counts = read_counts("posegraph", {})
+    counts = read_counts("posegraph", {}, snap)
     emit(dict(phase="posegraph", cases=cases, tolerances=PG_TOL,
               launches=counts))
-    return counts
 
 
 LOOP_MIN_INLIERS = 60      # LoopDetector's default, as the pipeline uses it
@@ -1576,7 +1189,7 @@ def check_graphs_on_jax_inputs(g, k):
     return err
 
 
-def run_loops_phase(card):
+def run_loops_phase():
     """SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO cell's
     12 frames at the loops fixture's seeds, on the JAX pipeline's key
     stream and the JAX detector's draw of every pair, counted frame by
@@ -1599,47 +1212,30 @@ def run_loops_phase(card):
                  for k in range(len(frames))]
     seeds = [int(s) for s in g["seeds"]]
     vo_seeds = vo["seeds"].tolist()
-    rows, counts, frame_ms, query_ms = [], None, [], []
+    rows, counts = [], None
     for k, seed in enumerate(seeds):
         raws = torch.as_tensor(vo["raws"][vo_seeds.index(seed)]).cuda()
         pipe = SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
                             seed=seed, loop_detect=True, loop_min_gap=gap,
                             device="cuda")
-        reset_counts()
+        snap = _build.launch_counts.copy()
         for f, img in enumerate(frames):
-            before = {n: fn.launches for n, fn in KERNELS.items()}
+            before = _build.launch_counts.copy()
             n_ver = pipe._detector.n_verifications if f else 0
-            t0 = time.perf_counter()
             pipe.process(img, raw=raws[f - 1] if f else None,
                          loop_raws=loop_raws[f])
             torch.cuda.synchronize()
-            if f:
-                frame_ms.append((time.perf_counter() - t0) * 1e3)
-            if f == 0:
-                query = pipe._detector.query
-
-                def timed(*a, query=query, det=pipe._detector, **kw):
-                    n0 = det.n_verifications
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    out = query(*a, **kw)
-                    torch.cuda.synchronize()
-                    query_ms.append(((time.perf_counter() - t1) * 1e3,
-                                     det.n_verifications - n0))
-                    return out
-
-                pipe._detector.query = timed
             n_ver = pipe._detector.n_verifications - n_ver
-            got = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
             pairs = 1 + n_ver      # the tracked pair and each verification
-            check_launches(f"loops seed {seed} frame {f}", got,
+            check_launches(f"loops seed {seed} frame {f}",
+                           launches_since(before),
                            dict(A=1, B=1, F=1, **({"C": pairs, "E": pairs}
                                                   if f else {})))
         det = pipe._detector
         total = read_counts(f"loops seed {seed}", {
             "A": len(frames), "B": len(frames), "F": len(frames),
             "C": len(frames) - 1 + det.n_verifications,
-            "E": len(frames) - 1 + det.n_verifications})
+            "E": len(frames) - 1 + det.n_verifications}, snap)
         counts = counts or total
         jver = [tuple(int(x) for x in v[1:]) for v in g["ver"]
                 if v[0] == seed]
@@ -1690,8 +1286,6 @@ def run_loops_phase(card):
         raise AssertionError(f"loops: median SE3 ATE {med['ate_se3']} > "
                              f"1.5 x JAX's {jmed['ate_se3']}")
     resume = run_loop_resume(frames, intr, gap)
-    q = [ms for ms, _ in query_ms]
-    q_ver = [ms for ms, n in query_ms if n]
     emit(dict(phase="loops", frames=len(frames), seeds=seeds, min_gap=gap,
               runs=rows, median=med, jax_median=jmed,
               median_seeds_0_3=med4, jax_median_seeds_0_3=jmed4,
@@ -1701,18 +1295,6 @@ def run_loops_phase(card):
                   "C": "1 + the frame's verifications",
                   "E": "1 + the frame's verifications"}),
               launches=counts))
-    emit(dict(metric="slam_loop_frame_ms", value=statistics.median(frame_ms),
-              what="SlamPipeline.process with loop detection, one 200x280 "
-              "terrain frame after the first, host clock up to a "
-              "synchronise, median over the seeds' frames", card=card))
-    emit(dict(metric="loop_query_ms", value=statistics.median(q_ver),
-              all_queries_median=statistics.median(q),
-              verifications_per_query=float(np.mean(
-                  [len(r["inliers"]) for r in rows])) / (len(frames) - gap),
-              what="LoopDetector.query of a frame that verified at least one "
-              "candidate (upload, kernel C, RANSAC, one host read a "
-              "verification), host clock, median", card=card))
-    return counts
 
 
 def _loop_state(pipe):
@@ -1792,7 +1374,7 @@ MD_PG_STEPS = 2
 # graph's costs read 1.26e-4 relative (the second step's cost, 0.029: 3e-7
 # of the first), so they are held at the JAX test's 1e-3
 MD_TOL = dict(ba_cost_rtol=1e-4, ba_t=1e-4, pg_t=1e-4, pg_cost_rtol=1e-3)
-MD_LAUNCHES = {n: {"A": 1, "B_stacked": 1, "C": 1, "F": 1} for n in (1, 2)}
+MD_LAUNCHES = {"A": 1, "B_stacked": 1, "C": 1, "F": 1}    # a rank's
 
 
 def md_inputs(frames):
@@ -1837,216 +1419,27 @@ def md_run(mesh, inp):
     return out
 
 
-def md_times(mesh, inp) -> dict:
-    """The workloads' times on `mesh`: the mesh batch on the host clock up
-    to a synchronise (input on the host, all-gather included), one LM
-    iteration and one Gauss-Newton step of the graph with CUDA events.
-    Every rank makes the same calls, in the same order."""
-    bs = BatchSurf(inp.cfg, device="cuda", mesh=mesh)
-    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
-    C = inp.state.R.shape[0]
-    lam = torch.full((), 1e-3, device=mesh.device)
-    c0 = psum(ba_core.cost(sstate, sprob), mesh)
-    ba_iter = lambda: ba_distributed.lm_iteration(mesh, C, sstate, sprob,
-                                                  lam, c0)
-    ba_calls = count_allreduces(ba_iter)
-    stats = {}
-    pg_calls = count_allreduces(lambda: posegraph.optimize_distributed(
-        inp.graph, mesh, n_iters=1, stats=stats))
-    n = inp.graph.R.shape[0]
-    return dict(
-        mesh_batch8_ms=dict(value=time_wall_ms(
-            lambda: bs.detect_and_compute(inp.frames), 1, 5)),
-        dist_ba_iter_ms=dict(
-            value=time_ms(ba_iter), allreduces=ba_calls,
-            # the camera system packed in one buffer, the candidate's cost
-            allreduce_bytes=[ba_distributed.allreduce_bytes(C), 4]),
-        dist_posegraph_iter_ms=dict(
-            value=time_ms(lambda: posegraph.optimize_distributed(
-                inp.graph, mesh, n_iters=1), 1, 3),
-            cg_rounds=stats["cg_rounds"][0],
-            host_reads=stats["host_reads"][0],
-            # counted in psum: b, D and the cost once a step, one a CG
-            # round (masked ones included)
-            allreduces=pg_calls,
-            allreduce_bytes=dict(b=4 * 6 * n, D=4 * 36 * n,
-                                 matvec=4 * 6 * n)))
-
-
-def count_allreduces(fn) -> int:
-    """The all-reduces that one call of `fn` makes through psum (0 without
-    a group)."""
-    collective_counts["all_reduce"] = 0
-    fn()
-    return collective_counts["all_reduce"]
-
-
-def md_single_pairs(mesh, inp) -> dict:
-    """Each workload at the world of one beside its single-device path on
-    the same inputs, like for like and timed in turns (single, mesh, mesh,
-    single, ...): the batch of 8 (BatchSurf without and with the mesh,
-    host clock), one LM iteration (lm_step + cost + select against
-    lm_iteration, CUDA events) and one Gauss-Newton step of the graph
-    (optimize(solver="cg") against optimize_distributed, each with its
-    segment table, CUDA events and host clock).  -> {metric: {single,
-    mesh, ratio}}, medians."""
-    C = inp.state.R.shape[0]
-    lam = torch.full((), 1e-3, device=mesh.device)
-    c0 = ba_core.cost(inp.state, inp.prob)
-    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
-    c0m = psum(ba_core.cost(sstate, sprob), mesh)
-
-    def lm_single():
-        cand = ba_core.lm_step(inp.state, inp.prob, lam, C)
-        return ba_core.lm_select(inp.state, cand, lam, c0,
-                                 ba_core.cost(cand, inp.prob))
-    single_bs = BatchSurf(inp.cfg, device="cuda")
-    mesh_bs = BatchSurf(inp.cfg, device="cuda", mesh=mesh)
-    work = dict(
-        batch8_ms=(lambda: single_bs.detect_and_compute(inp.frames),
-                   lambda: mesh_bs.detect_and_compute(inp.frames), 4),
-        ba_iter_ms=(lm_single, lambda: ba_distributed.lm_iteration(
-            mesh, C, sstate, sprob, lam, c0m), 10),
-        posegraph_iter_ms=(
-            lambda: posegraph.optimize(inp.graph, n_iters=1, solver="cg"),
-            lambda: posegraph.optimize_distributed(inp.graph, mesh,
-                                                   n_iters=1), 3))
-    out = {}
-    for metric, (single, on_mesh, rounds) in work.items():
-        single(), on_mesh()                              # warm-up
-        ev = {"single": [], "mesh": []}
-        wall = {"single": [], "mesh": []}
-        for _ in range(rounds):
-            for name in ("single", "mesh", "mesh", "single"):
-                fn = single if name == "single" else on_mesh
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                a.record()
-                fn()
-                b.record()
-                b.synchronize()
-                wall[name].append((time.perf_counter() - t0) * 1e3)
-                ev[name].append(a.elapsed_time(b))
-        med = {k: statistics.median(v) for k, v in ev.items()}
-        wmed = {k: statistics.median(v) for k, v in wall.items()}
-        out[metric] = dict(single=med["single"], mesh=med["mesh"],
-                           ratio=med["mesh"] / med["single"],
-                           wall_single=wmed["single"], wall_mesh=wmed["mesh"],
-                           wall_ratio=wmed["mesh"] / wmed["single"],
-                           runs=2 * rounds)
-    return out
-
-
-def md_trace(step) -> dict | None:
-    """One call of `step` at the world of one, first plain with the host
-    time inside each `torch.distributed.all_reduce` summed, then under
-    torch.profiler: the all-reduces (counted in psum), their host time
-    (the `c10d::allreduce_` operator with what it calls; its
-    `record_param_comms` self time, the backend's collective body) and the
-    device time of the backend's kernels (names with "nccl"), beside the
-    call's device operations and their summed time, and the heaviest host
-    operators and device kernels.  The profiled part is None when the
-    profiler records no device activity in three sessions (a reading, not
-    a check)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    spent, bare = [], torch.distributed.all_reduce
-
-    def timed(*args, **kw):
-        t = time.perf_counter()
-        out = bare(*args, **kw)
-        spent.append(time.perf_counter() - t)
-        return out
-    torch.distributed.all_reduce = timed
-    try:
-        step()
-    finally:
-        torch.distributed.all_reduce = bare
-    torch.cuda.synchronize()
-    out = dict(allreduce_host_us_plain=sum(spent) * 1e6,
-               allreduce_host_us_plain_each=sum(spent) * 1e6 / len(spent))
-    for _ in range(3):
-        collective_counts["all_reduce"] = 0
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
-            break
-    else:
-        return dict(out, profiled=None)
-    kernels = {}
-    for e in dev:
-        k = kernels.setdefault(e.name, [0, 0.0])
-        k[0] += 1
-        k[1] += e.time_range.elapsed_us()
-    cpu = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
-    ar = [a for a in cpu if a.key == "c10d::allreduce_"]
-    nccl = [(n, c, us) for n, (c, us) in kernels.items()
-            if "nccl" in n.lower()]
-    top = lambda rows: [dict(name=n[:80], count=c, us=round(us, 1))
-                        for n, c, us in sorted(rows, key=lambda r: -r[2])[:8]]
-    return dict(
-        out, allreduces=collective_counts["all_reduce"],
-        allreduce_host_ops=sum(a.count for a in ar),
-        allreduce_host_us=sum(a.cpu_time_total for a in ar),
-        record_param_comms_self_us=sum(a.self_cpu_time_total for a in cpu
-                                       if a.key == "record_param_comms"),
-        allreduce_device_kernels=sum(c for _, c, _ in nccl),
-        allreduce_device_us=sum(us for *_, us in nccl),
-        clones=sum(a.count for a in cpu if a.key == "aten::clone"),
-        device_ops=len(dev), device_us=sum(e.time_range.elapsed_us()
-                                           for e in dev),
-        top_host_ops=top([(a.key, a.count, a.self_cpu_time_total)
-                          for a in cpu]),
-        top_device_kernels=top([(n, c, us) for n, (c, us) in
-                                kernels.items()]))
-
-
-def md_traces(mesh, inp) -> dict:
-    """md_trace of one optimize_distributed step of the n = 600 graph and
-    of one distributed LM iteration."""
-    C = inp.state.R.shape[0]
-    sprob, sstate = ba_distributed.shard_problem(inp.prob, inp.state, mesh)
-    lam = torch.full((), 1e-3, device=mesh.device)
-    c0 = psum(ba_core.cost(sstate, sprob), mesh)
-    return dict(
-        posegraph_step=md_trace(lambda: posegraph.optimize_distributed(
-            inp.graph, mesh, n_iters=1)),
-        ba_iteration=md_trace(lambda: ba_distributed.lm_iteration(
-            mesh, C, sstate, sprob, lam, c0)))
-
-
 def md_world(mesh, inp, name):
-    """md_run counted (the counts set to 0 just before and read just after,
-    held to MD_LAUNCHES), then md_times.  -> (outputs, counts, times)."""
-    reset_counts()
+    """md_run counted (held to MD_LAUNCHES).  -> (outputs, counts)."""
+    snap = _build.launch_counts.copy()
     out = md_run(mesh, inp)
-    counts = read_counts(name, MD_LAUNCHES[mesh.size])
-    return out, counts, md_times(mesh, inp)
+    return out, read_counts(name, MD_LAUNCHES, snap)
 
 
 def multidevice_rank(out_dir) -> int:
     """One rank of the phase's world of two, started by
     run_multidevice_phase with the SURF_* variables set: both ranks on
     cuda:0 over gloo (NCCL refuses two ranks on one card).  Writes its
-    outputs to out_dir/rank<r>.npz and prints its launches and times as
-    one JSON line."""
+    outputs to out_dir/rank<r>.npz and prints its launches as one JSON
+    line."""
     initialize_from_env(timeout_s=MD_RANK_TIMEOUT, backend="gloo",
                         device="cuda:0")
     mesh = global_mesh()
     inp = md_inputs(np.load(os.path.join(out_dir, "frames.npy")))
-    out, counts, times = md_world(mesh, inp, f"multidevice rank "
-                                  f"{mesh.rank}")
+    out, counts = md_world(mesh, inp, f"multidevice rank {mesh.rank}")
     np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     emit(dict(multidevice_rank=mesh.rank, backend=mesh.backend,
-              device=str(mesh.device), launches=counts, **times))
+              device=str(mesh.device), launches=counts))
     torch.distributed.destroy_process_group()
     return 0
 
@@ -2067,8 +1460,7 @@ def run_multidevice_phase(card):
     World of two: two processes of this script on cuda:0 over gloo, each
     with its launches A 1, stacked B 1, C 1, F 1; the batch equal to the
     single-device one, the BA and graph within MD_TOL of the world of one,
-    the replicated outputs bit-equal across the ranks.  Then the times of
-    both worlds."""
+    the replicated outputs bit-equal across the ranks."""
     from cuda_surf_tpu_torch.parallel.dryrun import (dryrun_multichip,
                                                      free_port, launch)
     frames = main_batch(BATCH_FRAMES)
@@ -2098,9 +1490,7 @@ def run_multidevice_phase(card):
         mesh = global_mesh()
         if (mesh.size, mesh.backend) != (1, "nccl"):
             raise AssertionError(f"multidevice: world of one is {mesh}")
-        out1, counts, times1 = md_world(mesh, inp, "multidevice")
-        pairs = md_single_pairs(mesh, inp)
-        traces = md_traces(mesh, inp)
+        out1, counts = md_world(mesh, inp, "multidevice")
         full_res = dryrun_multichip(1, full_res=True)
     finally:
         if torch.distributed.is_initialized():
@@ -2151,31 +1541,6 @@ def run_multidevice_phase(card):
     if not full_res["ba_cost"] < full_res["ba_cost0"]:
         raise AssertionError(f"multidevice full-res dry run: {full_res}")
     emit(dict(phase="multidevice_dryrun_full_res", **full_res))
-    emit(dict(metric="multidevice_world1_vs_single", pairs=pairs,
-              what="each workload at the world of one (NCCL) beside its "
-              "single-device path, like for like, in turns; medians of "
-              "CUDA events and of the host clock", card=card))
-    emit(dict(metric="multidevice_traces", **traces,
-              what="one optimize_distributed step of the n = 600 graph and "
-              "one distributed LM iteration at the world of one (NCCL): "
-              "host time inside the all-reduces, then torch.profiler",
-              card=card))
-    what = dict(mesh_batch8_ms="mesh BatchSurf of the 8 1280x960 frames, "
-                "host input, all-gather included, host clock",
-                dist_ba_iter_ms="one distributed LM iteration, 8 cameras x "
-                "512 points, CUDA events",
-                dist_posegraph_iter_ms="one optimize_distributed step of "
-                "the n = 600 SE(3) graph (padding, table, blocks, CG), CUDA "
-                "events")
-    for metric, text in what.items():
-        emit(dict(metric=metric, world1=times1[metric]["value"],
-                  world2=[ln[metric]["value"] for ln in lines],
-                  **{k: v for k, v in times1[metric].items() if k != "value"},
-                  what=text, note="world 2: two processes on one card over "
-                  "gloo: the communication path, not scaling",
-                  nccl=".".join(map(str, torch.cuda.nccl.version())),
-                  card=card))
-    return counts
 
 
 def reference_pair(cfg):
@@ -2200,66 +1565,22 @@ def reference_pair(cfg):
               mean_best=mean_best))
 
 
-def profiled_ops(fn, frames):
-    """Device operations and their summed us per frame in one call of `fn`,
-    and the call's operations, from torch.profiler.  The profiler now and
-    then records no device activity; after four such sessions the counts
-    are reported as missing (None), since they are a reading, not a check."""
-    for _ in range(4):
-        ops, us = device_ops(fn)
-        if ops:
-            return ops / frames, us / frames, us
-    return None, None, None
-
-
-def time_batch(cfg, frames_dev, card):
-    """The batch beside the same frames through the single-frame path, in
-    turns batch, singles, singles, batch, on the host clock up to a
-    synchronise and with CUDA events; device operations per frame of both
-    from one profiled call each."""
-    B = len(frames_dev)
-    imgs = torch.stack(frames_dev)
-    batch = lambda: detect_and_compute_batch(imgs, cfg)
-    singles = lambda: [detect_and_compute(f, cfg) for f in frames_dev]
-    turns = [(fn, time_wall_ms(fn, 2, 5), time_ms(fn, 1, 5))
-             for fn in (batch, singles, singles, batch)]
-    wall = lambda fn: statistics.mean(w for f, w, _ in turns if f is fn)
-    dev = lambda fn: statistics.mean(e for f, _, e in turns if f is fn)
-    share = lambda us, fn: None if us is None else us / 1e3 / wall(fn)
-    ops_b, us_b, all_b = profiled_ops(batch, B)
-    ops_s, us_s, all_s = profiled_ops(singles, B)
-    emit(dict(metric="batch8_ms", value=dev(batch), wall_ms=wall(batch),
-              batch8_frames_per_s=B / wall(batch) * 1e3,
-              device_ops_per_frame=ops_b, device_us_per_frame=us_b,
-              busy_share=share(all_b, batch),
-              what=f"detect_and_compute_batch of {B} 1280x960 frames, "
-              "device-resident input", card=card))
-    emit(dict(metric="singles8_ms", value=dev(singles), wall_ms=wall(singles),
-              singles8_frames_per_s=B / wall(singles) * 1e3,
-              device_ops_per_frame=ops_s, device_us_per_frame=us_s,
-              busy_share=share(all_s, singles),
-              what=f"the same {B} frames, one detect_and_compute each",
-              card=card))
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    env = environment()
-    card = env["card"]
+    card = environment()["card"]
 
     t0 = time.perf_counter()
     kl = _build.kernels()
     ptxas = [ln.strip() for ln in kl.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              nvcc_seconds=kl.build_seconds, ptxas=ptxas))
     configs = dict(main=MAIN_CONFIG, rotated=ROTATED_CONFIG,
                    doubled=DOUBLED_CONFIG,
                    doubled_rotated=DOUBLED_ROTATED_CONFIG)
     cfgs = {k: SurfConfig(**v) for k, v in configs.items()}
-    occ = occupancy(cfgs, MAIN_PAIR["h"], MAIN_PAIR["w"])
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds=kl.build_seconds, occupancy=occ, ptxas=ptxas))
     golden = {k: load_golden(k, v) for k, v in configs.items()}
     golden["batch"] = load_golden("batch", MAIN_CONFIG)
     cfg = cfgs["main"]
@@ -2268,183 +1589,49 @@ def main() -> int:
     batch_dev = [torch.as_tensor(f).cuda() for f in batch_frames]
     frames_dev = batch_dev[:2]
 
-    res = {"A": check_kernel_a(cfg, frames_dev)}
-    res["A"]["stack"] = check_kernel_a_stack(cfg, batch_dev)
+    check_kernel_a(cfg, frames_dev)
+    check_kernel_a_stack(cfg, batch_dev)
     kps_dev = path_keypoints(frames_dev, cfgs["rotated"])
-    res["D"] = check_kernel_d(cfgs["rotated"], kps_dev)
-    res["B"], rows128 = check_kernel_b(MAIN_CONFIG, kps_dev, list(B_MODES))
-    res["B_step"] = check_kernel_b_step(kps_dev)
-    res["B_stacked"] = check_kernel_b_stacked(batch_dev)
+    check_kernel_d(cfgs["rotated"], kps_dev)
+    rows128 = check_kernel_b(MAIN_CONFIG, kps_dev, list(B_MODES))
+    check_kernel_b_step(kps_dev)
+    check_kernel_b_stacked(batch_dev)
     # the same kernels at the doubled frame's size, one frame
-    dbl = {"A": check_kernel_a(cfgs["doubled"], frames_dev[:1], "doubled")}
+    check_kernel_a(cfgs["doubled"], frames_dev[:1], "doubled")
     kps_dbl = path_keypoints(frames_dev[:1], cfgs["doubled_rotated"])
-    dbl["D"] = check_kernel_d(cfgs["doubled_rotated"], kps_dbl, "doubled")
-    dbl["B"], _ = check_kernel_b(DOUBLED_CONFIG, kps_dbl,
-                                 ["upright64", "rotated64"], "doubled")
+    check_kernel_d(cfgs["doubled_rotated"], kps_dbl, "doubled")
+    check_kernel_b(DOUBLED_CONFIG, kps_dbl, ["upright64", "rotated64"],
+                   "doubled")
 
     # A and F: one launch a frame
     pair_kernels = {"A": 2, "B": 2, "C": 1, "F": 2}
-    counts = {}
-    kps, descs, m, counts["main"] = run_path("main", cfg, frames,
-                                             golden["main"], pair_kernels)
+    kps, descs = run_path("main", cfg, frames, golden["main"], pair_kernels)
     for name in ("rotated", "doubled", "doubled_rotated"):
         expected = dict(pair_kernels, **({} if cfgs[name].upright
                                          else {"D": 2}))
-        *_, counts[name] = run_path(name, cfgs[name], frames, golden[name],
-                                    expected)
-    counts["step_routed"] = run_step_routed_path(cfg, frames, golden["main"],
-                                                 descs)
-    kb, db, counts["batch"] = run_batch_path(cfg, batch_frames,
-                                             golden["batch"])
+        run_path(name, cfgs[name], frames, golden[name], expected)
+    run_step_routed_path(cfg, frames, golden["main"], descs)
+    kb, db = run_batch_path(cfg, batch_frames, golden["batch"])
 
     vo_frame = render_terrain_sequence(n_frames=1, h=480, w=640)[0][0]
-    res["F"] = check_kernel_f([
+    check_kernel_f([
         ("main_left", cfg, frames_dev[0]), ("main_right", cfg, frames_dev[1]),
         ("batch8", cfg, torch.stack(batch_dev)),
         ("vo_640x480", SurfConfig(**VO_CONFIG),
          torch.as_tensor(vo_frame).cuda())], card)
-    res["C"] = check_kernel_c(descs[0], descs[1], kps[1].valid)
-    c128 = check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
-    res["C"].update(d128=c128, pairs=check_kernel_c_pairs(
-        db[:-1].contiguous(), db[1:].contiguous(), kb.valid[1:].contiguous()),
-        max_abs_err=max(res["C"]["max_abs_err"], c128["max_abs_err"]))
-
-    times = lambda r: {k: r[k] for k in ("kernel_us", "bound_ms", "bound_by",
-                                         "bound_share")}
-    what = {"main": "upright detect+describe",
-            "rotated": "detect+orientation+rotated describe",
-            "doubled": "doubled upright detect+describe",
-            "doubled_rotated": "doubled detect+orientation+rotated describe"}
-    for name, metric in (("main", "pair_ms"), ("rotated", "rotated_pair_ms"),
-                         ("doubled", "doubled_pair_ms"),
-                         ("doubled_rotated", "doubled_rotated_pair_ms")):
-        pair = lambda c=cfgs[name]: [detect_and_compute(f, c)
-                                     for f in frames_dev]
-        runs = (WARMUP, RUNS) if name == "main" else (5, 20)
-        ms, wall = time_ms(pair, *runs), time_wall_ms(pair, *runs)
-        emit(dict(metric=metric, value=ms, wall_ms=wall,
-                  frame_ms=ms / 2, what=f"{what[name]} of both 1280x960 "
-                  "frames, device-resident input", card=card))
-    time_batch(cfg, batch_dev, card)
-    match = lambda: match_keypoints(kps[0], descs[0], kps[1], descs[1])
-    emit(dict(metric="match_ms", value=time_ms(match),
-              wall_ms=time_wall_ms(match), what="4096 x 4096 left->right "
-              "match", card=card))
-    res["E"] = check_kernel_e(card)
-    counts["track"] = run_track_path(card)
-    run_ba_phase(card)
-    counts["vo"] = run_vo_path(card)
-    counts["posegraph"] = run_posegraph_phase(card)
+    check_kernel_c(descs[0], descs[1], kps[1].valid)
+    check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
+    check_kernel_c_pairs(db[:-1].contiguous(), db[1:].contiguous(),
+                         kb.valid[1:].contiguous())
+    check_kernel_e(card)
+    run_track_path()
+    run_ba_phase()
+    run_vo_path()
+    run_posegraph_phase()
     run_cli_phase(card)
-    counts["loops"] = run_loops_phase(card)
-    counts["multidevice"] = run_multidevice_phase(card)
-    for k, r in res.items():
-        emit(dict(metric=f"kernel_{k}_ms", value=r["ms"],
-                  plain_ms=r["plain_ms"], **times(r), card=card))
-    stack = res["A"]["stack"]
-    emit(dict(metric="kernel_A_stack_ms", value=stack["ms"],
-              plain_ms=stack["plain_ms"], frames=stack["frames"],
-              **times(stack), what="kernel A, one launch on the stack of "
-              f"{stack['frames']} integral images", card=card))
-    for k in ("B", "B_stacked"):
-        for mode, r in res[k]["modes"].items():
-            emit(dict(metric=f"kernel_{k}_{mode}_ms", value=r["ms"],
-                      plain_ms=r["plain_ms"], **times(r), card=card))
-    c128, cpairs = res["C"]["d128"], res["C"]["pairs"]
-    emit(dict(metric="kernel_C_d128_ms", value=c128["ms"],
-              plain_ms=c128["plain_ms"], **times(c128), card=card))
-    emit(dict(metric="kernel_C_pairs_us", value=cpairs["kernel_us"],
-              each_kernel_us=cpairs["each_kernel_us"], pairs=cpairs["pairs"],
-              **times(cpairs), what="kernel C's own device time on the "
-              "batch's pairs of consecutive frames, one launch beside one "
-              "launch a pair", card=card))
-    for depth, r in ((64, res["C"]), (128, c128)):
-        emit(dict(metric=f"matmul_d{depth}_product_only_ms",
-                  value=r["product_only_ms"], what="torch.matmul(d1, d2.T) "
-                  "alone in float32, TF32 off: a part of kernel C's function "
-                  "(it writes the 67 MB score matrix and takes no top-2)",
-                  card=card))
-    for k, r in dbl.items():
-        for mode, rm in r.get("modes", {"": r}).items():
-            emit(dict(metric=f"doubled_kernel_{k}{'_' + mode if mode else ''}"
-                      "_ms", value=rm["ms"], plain_ms=rm["plain_ms"],
-                      **times(rm), what="one 1280x960 frame doubled: a 2560x1920 "
-                      "integral image", card=card))
-
+    run_loops_phase()
+    run_multidevice_phase(card)
     reference_pair(cfg)
-
-    csrc = "cuda_surf_tpu_torch/csrc/"
-    # name, source, the TPU kernel it replaces, further ones, and the path
-    # whose run gives `launches`
-    meta = {
-        "A": ("octave_response_nms", "detect.cu",
-              "cuda_surf_tpu/ops/fused_detect.py:148", None, "main"),
-        "B": ("describe", "describe.cu",
-              "cuda_surf_tpu/ops/patch_wavelets.py:369",
-              ["cuda_surf_tpu/ops/patch_bucketed.py:70",
-               "cuda_surf_tpu/ops/patch_common.py:147"], "main"),
-        "B_stacked": ("describe_stacked", "describe.cu",
-                      "cuda_surf_tpu/ops/patch_wavelets.py:129", None,
-                      "batch"),
-        "B_step": ("describe_step", "describe_step.cu",
-                   "cuda_surf_tpu/ops/patch_bucketed.py:487", None,
-                   "step_routed"),
-        "C": ("fused_best2", "match.cu",
-              "cuda_surf_tpu/ops/matcher_pallas.py:42", None, "main"),
-        "D": ("orient", "orient.cu",
-              "cuda_surf_tpu/ops/patch_bucketed.py:70", None, "rotated"),
-        "E": ("five_point", "fivepoint.cu",
-              "none: not a port (cuda_surf_tpu/geometry/fivepoint.py is "
-              "XLA-compiled jnp)", None, "track"),
-        "F": ("detect_glue", "extrema.cu",
-              "none: not a port (cuda_surf_tpu/ops/extrema.py:detect is "
-              "XLA-compiled jnp)", None, "main"),
-    }
-    rows = []
-    for k, (name, src, repl, also, path) in meta.items():
-        r = res[k]
-        row = dict(name=name, route="cuda", source=csrc + src, replaces=repl,
-                   launches=counts[path][k], launches_path=path,
-                   launches_by_path={p: c[k] for p, c in counts.items()},
-                   max_abs_err=r["max_abs_err"], ms=r["ms"],
-                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                   bound_by=r["bound_by"], bound_bytes=r["bound_bytes"],
-                   bound_ops=r["bound_ops"], kernel_us=r["kernel_us"],
-                   bound_share=r["bound_share"],
-                   # no single PyTorch call computes any of these functions
-                   library_ms=None)
-        if also:
-            row["also_replaces"] = also
-        if "modes" in r:
-            row["modes"] = r["modes"]
-        if k in ("B", "B_stacked", "B_step"):
-            row["body"] = csrc + "describe_body.cuh"
-        if k == "E":
-            row.update(body=csrc + "fivepoint_body.cuh",
-                       bit_equal=r["bit_equal"],
-                       valid_candidates=r["valid_candidates"])
-        if k in ("A", "B", "B_stacked", "B_step", "C", "D"):
-            # what fits an SM, asked of the built kernels
-            row["occupancy"] = {n: v for n, v in occ.items() if n.startswith(
-                {"A": "A_", "C": "C_", "D": "D"}.get(k, "describe_"))}
-        if k == "A":
-            row["stack"] = r["stack"]
-        if k == "B_step":
-            row.update(timed_step=r["timed_step"],
-                       timed_taken=r["timed_taken"])
-        if k == "C":
-            # the bound counts three TF32 products a score at the tensor
-            # cores' dense rate
-            row.update(product_only_ms=r["product_only_ms"], d128=r["d128"],
-                       pairs=r["pairs"])
-        if k == "D":
-            row["replaces_mode"] = "grids"
-        if k == "F":
-            row["cases"] = r["cases"]
-        if k in dbl:
-            row["doubled"] = {kk: v for kk, v in dbl[k].items()}
-        rows.append(row)
-    emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

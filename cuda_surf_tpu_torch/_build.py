@@ -8,11 +8,13 @@ at import, and is redone when a source's hash or a flag changes.  Every C
 entry point returns `cudaGetLastError()` after its launch; `launch` calls
 one and raises on a non-zero code, and inside `record_launches()` it also
 brackets the call with two CUDA events, which gives a kernel's own device
-time without the eager glue of its wrapper.
+time without the eager glue of its wrapper.  `launch_counts` counts the
+calls of each entry point, the one count of the port's kernel launches.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import fcntl
@@ -176,6 +178,9 @@ def check(err: int, name: str) -> None:
 
 
 _recorded = None    # inside record_launches(): [(entry, start, end events)]
+# entry point name -> calls through `launch` in this process; read a
+# difference of two snapshots (`launch_counts.copy()`)
+launch_counts: collections.Counter = collections.Counter()
 
 
 def launch(name: str, *args) -> None:
@@ -184,13 +189,14 @@ def launch(name: str, *args) -> None:
     fn = getattr(kernels().lib, name)
     if _recorded is None:
         check(fn(*args), name)
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    check(fn(*args), name)
-    end.record()
-    _recorded.append((name, start, end))
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        check(fn(*args), name)
+        end.record()
+        _recorded.append((name, start, end))
+    launch_counts[name] += 1
 
 
 @contextlib.contextmanager
@@ -213,6 +219,18 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_device(device, who: str) -> torch.device:
+    """-> torch.device for "cuda" or "cpu"; "cuda" without a card raises
+    (the port never runs on the CPU unless asked to)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): no CUDA device is "
+                           "available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {device}")
+    return device
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..frontend import require_device
+from .._build import require_device
 from ..geometry.pose import exp_so3, hat
 
 

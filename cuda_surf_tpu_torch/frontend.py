@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._build import require_device
 from .config import SurfConfig
 from .types import Keypoints, Matches, compact
 from .ops.integral import integral_image
@@ -194,18 +195,6 @@ def _to_uint8(image, device) -> torch.Tensor:
     img = torch.as_tensor(np.asarray(image, np.uint8)
                           if not isinstance(image, torch.Tensor) else image)
     return img.to(device, torch.uint8)
-
-
-def require_device(device, who: str) -> torch.device:
-    """-> torch.device for "cuda" or "cpu"; "cuda" without a card raises
-    (the port never runs on the CPU unless asked to)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}(device='cuda'): no CUDA device is "
-                           "available")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{who}: unsupported device {device}")
-    return device
 
 
 class Surf:

@@ -446,8 +446,4 @@ def five_point(x1, x2, gn_iters: int = 8):
             _build.launch("surf_fivepoint", _build.ptr(x1), _build.ptr(x2), n,
                           int(gn_iters), _build.ptr(Es), _build.ptr(valid),
                           _build.stream(x1.device))
-        five_point.launches += 1
     return Es, valid
-
-
-five_point.launches = 0

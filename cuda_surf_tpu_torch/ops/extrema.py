@@ -300,13 +300,9 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
             cfg.interp_moves, cfg.thresh, cfg.init_lobe, cfg.max_scale,
             _build.ptr(ints[2 * cap + 2:]), _build.ptr(valid),
             _build.ptr(fields), _build.ptr(ints), _build.stream(dev))
-    detect.launches += 1
     return dict(valid=valid, nx=fields[0], ny=fields[1], ns=fields[2],
                 strength=fields[3], octave=ints[:cap], frame=ints[cap:2 * cap],
                 count=ints[2 * cap], walkers=ints[2 * cap + 1])
-
-
-detect.launches = 0
 
 
 def _detect_plain(pyr, scheds, cfg: SurfConfig, cand_masks,

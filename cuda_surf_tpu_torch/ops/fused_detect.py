@@ -220,13 +220,9 @@ def fused_pyramid(ii: torch.Tensor, cfg: SurfConfig, h: int, w: int):
             "surf_pyramid", _build.ptr(ii), B, ih, iw, _build.ptr(plan.dev),
             len(plan.tiles), plan.smem_bytes, RR, pre_t, _build.ptr(layers),
             _build.ptr(masks), _build.stream(ii.device))
-    fused_pyramid.launches += 1
     lead = (B,) if ii.ndim == 3 else ()
     views = lambda flat: [
         flat[B * off:B * (off + cfg.max_scale * p["oh"] * p["ow"])].view(
             *lead, cfg.max_scale, p["oh"], p["ow"])
         for off, p in zip(plan.offsets, plan.octaves)]
     return views(layers), views(masks)
-
-
-fused_pyramid.launches = 0

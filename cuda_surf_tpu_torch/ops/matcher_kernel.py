@@ -134,8 +134,4 @@ def fused_best2(desc1: torch.Tensor, desc2: torch.Tensor,
             "surf_best2", _build.ptr(d1), _build.ptr(d2), _build.ptr(v2), P,
             N1, N2, D, splits, pb, ps, pi, done, epoch, _build.ptr(best),
             _build.ptr(second), _build.ptr(index), _build.stream(dev))
-    fused_best2.launches += 1
     return best, second, index
-
-
-fused_best2.launches = 0

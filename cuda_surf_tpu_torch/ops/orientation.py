@@ -257,8 +257,4 @@ def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
                       _build.ptr(y), _build.ptr(scale), _build.ptr(valid),
                       int(cfg.doubled), _build.ptr(ftab), K, _build.ptr(out),
                       _build.stream(ii.device))
-    assign_orientations.launches += 1
     return out
-
-
-assign_orientations.launches = 0

@@ -83,11 +83,7 @@ def single_rows(ii: torch.Tensor, cfg: SurfConfig, *geom) -> torch.Tensor:
             _build.ptr(fpar), _build.ptr(wtab), K, cfg.max_iradius,
             int(cfg.upright), cfg.orient_size, _build.ptr(out),
             _build.stream(ii.device))
-    single_rows.launches += 1
     return out
-
-
-single_rows.launches = 0
 
 
 def stacked_rows(ii: torch.Tensor, cfg: SurfConfig, *geom,
@@ -110,11 +106,7 @@ def stacked_rows(ii: torch.Tensor, cfg: SurfConfig, *geom,
             _build.ptr(meta), _build.ptr(fpar), _build.ptr(wtab), K,
             cfg.max_iradius, int(cfg.upright), cfg.orient_size,
             _build.ptr(out), _build.stream(ii.device))
-    stacked_rows.launches += 1
     return out
-
-
-stacked_rows.launches = 0
 
 
 def step_selection(step: torch.Tensor, elig: torch.Tensor, sd: int, cap: int):
@@ -178,11 +170,7 @@ def step_rows(ii: torch.Tensor, cfg: SurfConfig, *geom, elig, sd: int,
             _build.ptr(count), cap, sd, min(r_b, cfg.max_iradius),
             int(cfg.upright), cfg.orient_size, _build.ptr(out),
             _build.stream(ii.device))
-    step_rows.launches += 1
     return out[slot.long()], taken
-
-
-step_rows.launches = 0
 
 
 def descriptor_rows(ii: torch.Tensor, cfg: SurfConfig, ix, iy, step, iscale,

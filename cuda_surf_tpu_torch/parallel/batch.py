@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from .._build import require_device
 from ..config import SurfConfig
-from ..frontend import _to_uint8, detect_and_compute_batch, require_device
+from ..frontend import _to_uint8, detect_and_compute_batch
 from ..ops.matcher import match_keypoints
 from ..types import Keypoints, Matches
 from ..utils.timing import span

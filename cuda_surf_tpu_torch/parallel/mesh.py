@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..frontend import require_device
+from .._build import require_device
 from ..utils.timing import span
 
 FRAME_AXIS = "frames"

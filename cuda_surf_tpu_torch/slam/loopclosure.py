@@ -21,7 +21,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from ..frontend import require_device
+from .._build import require_device
 from ..io.synth import Intrinsics
 from ..types import keypoints_from_numpy, keypoints_to_numpy
 from .posegraph import PoseGraph, edge_residuals, optimize

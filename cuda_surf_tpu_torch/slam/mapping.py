@@ -18,8 +18,8 @@ from typing import List
 import numpy as np
 import torch
 
+from .._build import require_device
 from ..ba import BAProblem, BAState, run_lm
-from ..frontend import require_device
 from ..io.synth import Intrinsics
 
 

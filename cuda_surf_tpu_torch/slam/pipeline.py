@@ -21,9 +21,10 @@ from typing import List
 import numpy as np
 import torch
 
+from .._build import require_device
 from ..ba import BAProblem, BAState, run_lm
 from ..config import SurfConfig
-from ..frontend import Surf, require_device
+from ..frontend import Surf
 from ..geometry.epipolar import normalize_with_intrinsics
 from ..io.synth import Intrinsics
 from ..utils.metrics import MetricsLogger

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ..frontend import require_device
+from .._build import require_device
 from ..geometry.pose import compose, exp_so3, invert, log_so3
 from ..parallel.mesh import psum, replicated, shard_rows
 

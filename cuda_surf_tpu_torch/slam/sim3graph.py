@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..frontend import require_device
+from .._build import require_device
 from ..geometry.pose import exp_so3, log_so3
 from .posegraph import (normal_blocks, residual_jacobians, solve_step,
                         solver_plan)

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ._build import require_device
+
 
 class Keypoints(NamedTuple):
     """Fixed-capacity SURF keypoint set (SurfPoint, surf_structures.h:7-31,
@@ -56,7 +58,6 @@ def keypoints_from_numpy(src, device="cuda") -> Keypoints:
     """Build :class:`Keypoints` from any object (or dict) carrying the
     fields as arrays, e.g. the JAX package's keypoints after `np.asarray`;
     on the card unless `device="cpu"`."""
-    from .frontend import require_device
     device = require_device(device, "keypoints_from_numpy")
     get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k))
     return Keypoints(**{

@@ -31,17 +31,30 @@ doubled pair paths like the first table.
 
 With --kernels it times the kernels alone instead, at the main path's
 shapes: A on one frame, on the stack of BATCH_FRAMES frames and on the
-doubled frame (a 2560x1920 integral image); kernel B on frame 0's
-keypoints, upright / rotated x 64 / 128-d; B_stacked on every frame's
-slots in one launch, 64-d; B_step, the static-step kernel at step 4; C on
-the descriptors of frames 0 -> 1 at 64-d (C_d64) and 128-d (C_d128), on the
-BATCH_FRAMES - 1 pairs of consecutive frames in one launch (C_pairs) and
-in one launch a pair (C_each); D on frame 0's keypoints (D_frame) and on
-the doubled frame's (D_doubled).  One JSON object per kernel: `kernel_us`, the device time of the
-library call alone (CUDA events around it, `_build.record_launches`,
+doubled frame (a 2560x1920 integral image); F, the compaction and subpixel
+walk, on frame 0 (F_frame), on the stack (F_stack) and on a 640x480
+terrain frame at the VO config (F_vo); E, the five-point solver, on the
+128 hypotheses of the track fixture's first JAX draw at gn_iters 4, as
+track_pair calls it; kernel B on frame 0's keypoints, upright / rotated x
+64 / 128-d; B_stacked on every frame's slots in one launch, 64-d; B_step,
+the static-step kernel at step 4; C on the descriptors of frames 0 -> 1
+at 64-d (C_d64) and 128-d (C_d128), on the BATCH_FRAMES - 1 pairs of
+consecutive frames in one launch (C_pairs) and in one launch a pair
+(C_each); D on frame 0's keypoints (D_frame) and on the doubled frame's
+(D_doubled).  One JSON object per kernel: `kernel_us`, the device time of
+the library call alone (CUDA events around it, `_build.record_launches`,
 median of 20 calls after 3), `ms` as above, `device_ops` and `device_us`
-from the profiler, and `sha`, a hash of the output's bytes, so that two
-builds of the kernels can be held against each other bit for bit.
+from the profiler, `sha`, a hash of the output's bytes, so that two
+builds of the kernels can be held against each other bit for bit, and
+`occupancy` where the kernel has an occupancy entry point (blocks and
+warps of the built kernel that fit one SM).  `bound_us` is the least time
+the kernel's work takes on the card's published peaks
+(portbench/rooflines/peaks.py), `bound_share` that over `kernel_us`, and
+`bound_count` names where the work is counted: A and upright 64-d B by
+the benchmark's own counts (portbench/rooflines/detect.py, describe.py);
+C, D, E and F by this file's (`c_work`, `d_work`, `E_OPS_*`, `f_work`).  A
+mode that no count covers (doubled A; rotated, 128-d or doubled B) prints
+`bound_count` as the reason and no share.
 
 With --track it splits the visual-odometry path instead: `track_pair` on
 the terrain fixture's 1280x960 pair (cuda_surf_tpu_torch/data/
@@ -51,7 +64,11 @@ solver (and its Durand-Kerner root step alone), the Sampson scoring of the
 4096 slots x 2560 candidates, the two refits, recover_pose and the whole
 call on the port's own draws; and one `lm_step` on bench.py's 8-camera x
 512-point problem into the Schur build, the solve, the rest, and the whole
-step, with `run_lm` for 10 iterations.
+step, with `run_lm` for 10 iterations.  Then `posegraph_iter_ms`: one
+Gauss-Newton step (edge blocks + solve) of each of golden_posegraph.npz's
+four graphs (SE(3) / Sim(3) at n = 64 dense and n = 600 CG) at its input
+state, CUDA events and the host clock up to a synchronise, with its device
+operations, CG rounds and host reads.
 
     python3 probe_stages.py [--runs 30] [--doubled]
     python3 probe_stages.py --kernels [--only A,C_d] [--tag NAME]
@@ -68,6 +85,7 @@ With no CUDA device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -75,7 +93,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -84,22 +104,30 @@ from cuda_surf_tpu_torch import BatchSurf, SurfConfig, _build, match_keypoints
 from cuda_surf_tpu_torch.ba import core as ba_core
 from cuda_surf_tpu_torch.geometry import epipolar, fivepoint
 from cuda_surf_tpu_torch.io.synth import Intrinsics, ba_problem
+from cuda_surf_tpu_torch.slam import posegraph, sim3graph
 from cuda_surf_tpu_torch.slam.tracking import (filter_matches, track_inputs,
                                                track_pair)
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
-                                        ROTATED_CONFIG)
+                                        ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
+                                        VO_CONFIG)
 from cuda_surf_tpu_torch.frontend import (_make_keypoints, _spread_frames,
                                           detect_and_compute,
                                           detect_and_compute_batch)
-from cuda_surf_tpu_torch.io import main_batch
+from cuda_surf_tpu_torch.io import main_batch, render_terrain_sequence
+from cuda_surf_tpu_torch.ops import matcher_kernel
 from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, l2_normalize
 from cuda_surf_tpu_torch.ops.extrema import detect
-from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
+from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
 from cuda_surf_tpu_torch.ops.integral import integral_image
 from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-from cuda_surf_tpu_torch.ops.orientation import assign_orientations
+from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
+                                                 orient_geometry)
 from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows, step_rows
+from chip_smoke import B_MODES, DATA, PG_CASES, f_inputs, posegraph_case
+from portbench.rooflines import describe as describe_count
+from portbench.rooflines import detect as detect_count
+from portbench.rooflines import peaks
 
 
 ORDER = ("integral image", "kernel A, all octaves", "detect: compaction + walk",
@@ -120,6 +148,21 @@ def event_ms(fn, runs: int, warmup: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def wall_ms(fn, runs: int, warmup: int = 5) -> float:
+    """Median host-clock time of `fn` plus a device synchronise: what a
+    caller waits for one result, launch overhead included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -253,10 +296,25 @@ def pair_table(paths, imgs, runs, card):
     print(flush=True)
 
 
-KERNEL_MODES = {"upright64": dict(upright=True, extended=False),
-                "rotated64": dict(upright=False, extended=False),
-                "upright128": dict(upright=True, extended=True),
-                "rotated128": dict(upright=False, extended=True)}
+# The work of kernels C-F, counted from their twins' expressions; integer
+# and compare operations count at the float32 rate, as a multiply or an
+# add does.  Kernel D per live sample of the orientation disc (wavelets 14,
+# magnitude 8, atan2 20, bin and weight 6, the 5 histogram sums) and per
+# keypoint for its 72 windows.
+D_OPS_LIVE, D_OPS_WINDOWS = 53, 72 * 36
+# kernel E per hypothesis: 20 roots x 96 Durand-Kerner rounds of ~150
+# operations (ten complex differences and their product, a Horner chain of
+# ten complex multiply-adds, a complex division, the step's clamp), 20
+# candidates x ~1,100 a Gauss-Newton step (80 monomial terms, 40 products
+# of 20, the 3x3 normal equations) and ~10,000 for the constraint matrix,
+# the 10x10 solve and det B(z)
+E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
+# kernel F: per mask byte the candidate test and its share of the scans, 2;
+# per fit the 19 stencil indices (4 each) and clamps (2), the gradient and
+# Hessian (19), the pivoted solve (42) and the strength (6), ~140; per slot
+# the fields, 20
+F_OPS_BYTE, F_OPS_FIT, F_OPS_SLOT = 2, 140, 20
+NO_COUNT = "the benchmark counts upright, 64-d, undoubled frames only"
 
 
 def own_us(fn) -> float:
@@ -278,31 +336,153 @@ def flatten(out):
     return [t for part in out for t in flatten(part)]
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(count, kernel_us: float) -> dict:
+    """`count`: (where the work is counted, (bytes, float32 operations[,
+    TF32 operations])), or why there is no count."""
+    if isinstance(count, str):
+        return dict(bound_count=f"no count: {count}", bound_share=None)
+    source, work = count
+    us = peaks.least_seconds(*work) * 1e6
+    by_bytes = work[0] / peaks.HBM_BYTES_PER_S * 1e6 >= us
+    return dict(bound_us=us, bound_by="bytes" if by_bytes else "operations",
+                bound_share=us / kernel_us, bound_count=source)
+
+
+def c_work(d1, d2, valid2):
+    """Kernel C: in the descriptors and the mask, out 12 bytes a row; a
+    multiply and an add per score element and depth, three such products
+    on the tensor cores as 3xTF32 (counted at the dense TF32 rate), then the
+    top-2 compares."""
+    rows = d1[..., 0].numel()
+    scores = rows * d2.shape[-2]
+    return (nbytes(d1, d2, valid2) + 12 * rows, 2 * scores,
+            3 * 2 * scores * d1.shape[-1])
+
+
+def d_work(ii, doubled, x, y, scale, valid):
+    """Kernel D: in the integral image, x / y / scale / valid per slot and
+    its 299-float table, out the angles; the operations of the disc's
+    samples that lie inside the frame and of each keypoint's windows."""
+    cx, cy, step, s = (a[:, None] for a in orient_geometry(x, y, scale,
+                                                           doubled))
+    g = torch.arange(-ORADIUS, ORADIUS + 1, device=ii.device)
+    y1, x1 = g.repeat_interleave(g.numel()), g.repeat(g.numel())
+    xx, yy = cx + x1 * step, cy + y1 * step
+    ih, iw = ii.shape
+    live = ((yy + s + 2 < ih) & (yy - s > -1) & (xx + s + 2 < iw)
+            & (xx - s > -1) & (y1 * y1 + x1 * x1 < ORADIUS_SQ)
+            & valid[:, None])
+    return (nbytes(ii) + 17 * x.shape[0] + 4 * 299,
+            D_OPS_LIVE * int(live.sum()) + D_OPS_WINDOWS * int(valid.sum()))
+
+
+def f_work(masks, out, walker_set):
+    """Kernel F: the masks read once, each fit's 19 stencil values, each
+    slot's 25 bytes of fields written once; every candidate fits once and
+    each walker of the walker set at least once more."""
+    fits = int(out["count"]) + min(int(out["walkers"]), walker_set)
+    mask_bytes = sum(m.numel() for m in masks)
+    slots = out["valid"].numel()
+    return (mask_bytes + 19 * 4 * fits + 25 * slots,
+            F_OPS_BYTE * mask_bytes + F_OPS_FIT * fits + F_OPS_SLOT * slots)
+
+
+def occupancy(h: int, w: int) -> dict:
+    """Blocks and warps of the built kernels that fit one SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor through each kernel's
+    occupancy entry point): A at the main and the doubled frame's dynamic
+    shared memory, the describe kernel in each mode, C at D = 64 and 128,
+    D."""
+    out = {}
+
+    def ask(entry, *args):
+        blocks = ctypes.c_int(0)
+        _build.launch(entry, *args, ctypes.byref(blocks))
+        return blocks.value
+
+    for name, config in (("A_main", MAIN_CONFIG), ("A_doubled",
+                                                    DOUBLED_CONFIG)):
+        c = SurfConfig(**config)
+        ih, iw = (2 * h, 2 * w) if c.doubled else (h + 1, w + 1)
+        smem = pyramid_plan(c, h, w, ih, iw, "cuda:0").smem_bytes
+        blocks = ask("surf_pyramid_occupancy", smem)
+        out[name] = dict(blocks_per_sm=blocks, warps_per_sm=8 * blocks,
+                         dynamic_smem_bytes=smem)
+    for mode, kw in B_MODES.items():
+        blocks = ask("surf_describe_occupancy", int(kw["upright"]),
+                     8 if kw["extended"] else 4)
+        out[f"B_{mode}"] = dict(blocks_per_sm=blocks, warps_per_sm=4 * blocks)
+    for depth in (64, 128):
+        blocks, warps = matcher_kernel.occupancy(depth)
+        out[f"C_d{depth}"] = dict(blocks_per_sm=blocks,
+                                  warps_per_sm=warps * blocks)
+    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+    _build.launch("surf_orient_occupancy", ctypes.byref(blocks),
+                  ctypes.byref(warps))
+    out["D"] = dict(blocks_per_sm=blocks.value,
+                    warps_per_sm=warps.value * blocks.value)
+    return out
+
+
 def kernel_table(imgs, runs, card, only, tag):
     """The kernels alone, one JSON object each; `only`: name prefixes."""
     wanted = lambda name: any(name.startswith(o) for o in only)
+    B, h, w = imgs.shape
+    occ = occupancy(h, w)
 
-    def report(name, fn):
+    def report(name, fn, count, occ_key=None):
+        """`count`: a function -> bound()'s count, or why there is none."""
         if not wanted(name):
             return
-        h = hashlib.sha256()
+        digest = hashlib.sha256()
         for t in flatten(fn()):
-            h.update(t.contiguous().cpu().numpy().tobytes())
+            digest.update(t.contiguous().cpu().numpy().tobytes())
         ops, us = device_ops(fn)
-        print(json.dumps(dict(tag=tag, kernel=name, kernel_us=own_us(fn),
-                              ms=event_ms(fn, runs), device_ops=ops,
-                              device_us=us, sha=h.hexdigest()[:16],
-                              card=card)), flush=True)
+        k_us = own_us(fn)
+        row = dict(tag=tag, kernel=name, kernel_us=k_us,
+                   ms=event_ms(fn, runs), device_ops=ops, device_us=us,
+                   sha=digest.hexdigest()[:16], card=card,
+                   **bound(count if isinstance(count, str) else count(),
+                           k_us))
+        if occ_key:
+            row["occupancy"] = occ[occ_key]
+        print(json.dumps(row), flush=True)
 
     cfg = SurfConfig(**MAIN_CONFIG)
-    B, h, w = imgs.shape
+    a_count = lambda frames: ("portbench/rooflines/detect.py", tuple(
+        frames * v for v in detect_count.work(MAIN_CONFIG, h, w)))
     ii = torch.stack([integral_image(im) for im in imgs])
-    report("A", lambda: fused_pyramid(ii[0], cfg, h, w))
-    report("A_stack", lambda: fused_pyramid(ii, cfg, h, w))
+    report("A", lambda: fused_pyramid(ii[0], cfg, h, w),
+           lambda: a_count(1), "A_main")
+    report("A_stack", lambda: fused_pyramid(ii, cfg, h, w),
+           lambda: a_count(B), "A_main")
     dcfg = SurfConfig(**DOUBLED_CONFIG)
     iid = integral_image(imgs[0], True)
-    report("A_doubled", lambda: fused_pyramid(iid, dcfg, h, w))
+    report("A_doubled", lambda: fused_pyramid(iid, dcfg, h, w), NO_COUNT,
+           "A_doubled")
     group = lambda g: any(o.startswith(g) or g.startswith(o) for o in only)
+    if group("F_"):
+        vo = torch.as_tensor(render_terrain_sequence(
+            n_frames=1, h=480, w=640)[0][0]).cuda()
+        for name, c, frames in (("F_frame", cfg, imgs[0]),
+                                ("F_stack", cfg, imgs),
+                                ("F_vo", SurfConfig(**VO_CONFIG), vo)):
+            pyr, masks, sched, n = f_inputs(c, frames)
+            run = lambda: detect(pyr, sched, c, masks, nframes=n)
+            walker_set = max(c.max_candidates * n // 8, 64)
+            report(name, lambda: list(run().values()),
+                   lambda: ("probe_stages.f_work",
+                            f_work(masks, run(), walker_set)))
+    if group("E"):
+        s1, s2 = track_hypotheses()
+        run = lambda: fivepoint.five_point(s1, s2, gn_iters=4)
+        report("E", run, lambda: ("probe_stages.E_OPS_*", (
+            nbytes(s1, s2, *run()), s1.shape[0] * (
+                E_OPS_DK + 4 * E_OPS_GN_STEP + E_OPS_MATRICES))))
     if not any(group(g) for g in ("B_", "C_", "D_")):
         return
 
@@ -314,52 +494,84 @@ def kernel_table(imgs, runs, card, only, tag):
     flat = lambda a: a.reshape(-1)
     frame = torch.arange(B, dtype=torch.int32,
                          device=ii.device).repeat_interleave(kb.x.shape[1])
-    for mode, kw in KERNEL_MODES.items():
+    frame_kps = lambda f, valid=None: SimpleNamespace(
+        x=kb.x[f], y=kb.y[f], scale=kb.scale[f],
+        valid=kb.valid[f] if valid is None else valid)
+    b_count = lambda *kps: ("portbench/rooflines/describe.py", tuple(
+        map(sum, zip(*(describe_count.work(k, h, w) for k in kps)))))
+    for mode, kw in B_MODES.items():
         c = SurfConfig(**dict(MAIN_CONFIG, **kw))
+        counted = mode == "upright64"
         g0 = desc_geometry(c, kb.x[0], kb.y[0], kb.scale[0], ori[0])
         report(f"B_{mode}",
-               lambda: descriptor_rows(ii[0], c, *g0, kb.valid[0]))
+               lambda: descriptor_rows(ii[0], c, *g0, kb.valid[0]),
+               (lambda: b_count(frame_kps(0))) if counted else NO_COUNT,
+               f"B_{mode}")
         if not c.extended:
             g = desc_geometry(c, flat(kb.x), flat(kb.y), flat(kb.scale),
                               flat(ori))
             report(f"B_stacked_{mode}",
                    lambda: descriptor_rows(ii, c, *g, flat(kb.valid),
-                                           frame=frame))
+                                           frame=frame),
+                   (lambda: b_count(*map(frame_kps, range(B)))) if counted
+                   else NO_COUNT, f"B_{mode}")
     g0 = desc_geometry(cfg, kb.x[0], kb.y[0], kb.scale[0], ori[0])
     v = kb.valid[0]
-    report("B_step", lambda: step_rows(ii[0], cfg, *g0, v, elig=v, sd=4)[0])
+    step = lambda: step_rows(ii[0], cfg, *g0, v, elig=v, sd=4)
+    report("B_step", lambda: step()[0],
+           lambda: b_count(frame_kps(0, step()[1])))
 
     report("D_frame", lambda: assign_orientations(
-        ii[0], rcfg, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0]))
+        ii[0], rcfg, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0]),
+        lambda: ("probe_stages.d_work", d_work(
+            ii[0], False, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0])), "D")
     if wanted("D_doubled"):
         drcfg = SurfConfig(**DOUBLED_ROTATED_CONFIG)
         kd, _ = detect_and_compute(imgs[0], drcfg, compute_descriptors=False)
         report("D_doubled", lambda: assign_orientations(
-            iid, drcfg, kd.x, kd.y, kd.scale, kd.valid))
+            iid, drcfg, kd.x, kd.y, kd.scale, kd.valid),
+            lambda: ("probe_stages.d_work", d_work(
+                iid, True, kd.x, kd.y, kd.scale, kd.valid)), "D")
     if not group("C_"):
         return
     rows = {}
     for mode in ("upright64", "upright128"):
-        c = SurfConfig(**dict(MAIN_CONFIG, **KERNEL_MODES[mode]))
+        c = SurfConfig(**dict(MAIN_CONFIG, **B_MODES[mode]))
         g = desc_geometry(c, flat(kb.x), flat(kb.y), flat(kb.scale), flat(ori))
         rows[mode] = l2_normalize(descriptor_rows(
             ii, c, *g, flat(kb.valid), frame=frame)).reshape(B, -1, c.nfeatures)
     d64, d128 = rows["upright64"], rows["upright128"]
-    report("C_d64", lambda: fused_best2(d64[0], d64[1], kb.valid[1]))
-    report("C_d128", lambda: fused_best2(d128[0], d128[1], kb.valid[1]))
+    c_count = lambda *a: ("probe_stages.c_work", c_work(*a))
+    report("C_d64", lambda: fused_best2(d64[0], d64[1], kb.valid[1]),
+           lambda: c_count(d64[0], d64[1], kb.valid[1]), "C_d64")
+    report("C_d128", lambda: fused_best2(d128[0], d128[1], kb.valid[1]),
+           lambda: c_count(d128[0], d128[1], kb.valid[1]), "C_d128")
     d1, d2, v2 = d64[:-1].contiguous(), d64[1:].contiguous(), \
         kb.valid[1:].contiguous()
     report("C_each", lambda: [fused_best2(d1[p], d2[p], v2[p])
-                              for p in range(B - 1)])
-    report("C_pairs", lambda: fused_best2(d1, d2, v2))
+                              for p in range(B - 1)],
+           lambda: c_count(d1, d2, v2), "C_d64")
+    report("C_pairs", lambda: fused_best2(d1, d2, v2),
+           lambda: c_count(d1, d2, v2), "C_d64")
+
+
+def track_hypotheses():
+    """x1, x2 of the 128 hypotheses that the track fixture's first JAX draw
+    samples on its 1280x960 pair at the main config."""
+    g = np.load(os.path.join(DATA, "golden_terrain_track.npz"))
+    intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
+    cfg = SurfConfig(**MAIN_CONFIG)
+    (k1, d1), (k2, d2) = [detect_and_compute(torch.as_tensor(f).cuda(), cfg)
+                          for f in g["frames"]]
+    _, good, x1, x2 = track_inputs(k1, d1, k2, d2, intr)
+    sample = epipolar.sample_rows(good, torch.as_tensor(g["raws"][0]).cuda())
+    return x1[sample], x2[sample]
 
 
 def track_stages():
     """[(name, fn)] of track_pair on the terrain fixture's pair and of one
     lm_step on bench.py's BA problem, each fn on fixed earlier outputs."""
-    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "cuda_surf_tpu_torch", "data",
-                             "golden_terrain_track.npz"))
+    g = np.load(os.path.join(DATA, "golden_terrain_track.npz"))
     intr = Intrinsics(*(float(v) for v in g["intrinsics"]))
     cfg = SurfConfig(**MAIN_CONFIG)
     (k1, d1), (k2, d2) = [detect_and_compute(torch.as_tensor(f).cuda(), cfg)
@@ -410,6 +622,41 @@ def track_stages():
     ]
 
 
+def gn_step(mod, graph, solver, table, stats=None):
+    """One Gauss-Newton step's increment at the graph's state."""
+    n = graph.R.shape[0]
+    blocks = (mod._edge_blocks(graph, graph.s, graph.R, graph.t)
+              if mod is sim3graph else mod._edge_blocks(graph, graph.R,
+                                                        graph.t))
+    return posegraph.solve_step(graph, n, solver, 1e-6, max(8 * n, 200),
+                                None, None, blocks, table, stats)
+
+
+def posegraph_steps(card, runs):
+    """`posegraph_iter_ms` of each graph of golden_posegraph.npz: one
+    Gauss-Newton step at its input state, with its CG rounds and host
+    reads; the CG steps, ~0.2-0.4 s each, 5 runs after 2."""
+    g = np.load(os.path.join(DATA, "golden_posegraph.npz"))
+    for case in PG_CASES:
+        mod, graph, solver, _ = posegraph_case(g, case)
+        table = posegraph.segment_table(graph, graph.R.shape[0]) \
+            if solver == "cg" else None
+        stats = {}
+        gn_step(mod, graph, solver, table, stats)
+        fn = lambda: gn_step(mod, graph, solver, table)
+        n, warmup = (5, 2) if solver == "cg" else (runs, 5)
+        ms = event_ms(fn, n, warmup)
+        ops, us = device_ops(fn)
+        print(json.dumps(dict(
+            metric="posegraph_iter_ms", case=case, value=ms,
+            wall_ms=wall_ms(fn, n, warmup), device_ops=ops, device_us=us,
+            cg_rounds=stats.get("cg_rounds", [0])[0],
+            cg_chunk=posegraph.CG_CHUNK if solver == "cg" else None,
+            host_reads=stats.get("host_reads", [0])[0],
+            what=f"one Gauss-Newton step of {case} ({solver}) at its input "
+            "state: edge blocks + solve", card=card)), flush=True)
+
+
 def track_table(card, runs):
     rows = [probe("track", name, fn, runs, card, "track_pair, whole")
             for name, fn in track_stages()]
@@ -420,6 +667,8 @@ def track_table(card, runs):
         us = r["device_us"]
         print(f"| {r['stage']} | {r['ms']:.3f} | {r['device_ops']} | "
               + ("— |" if us is None else f"{us:.1f} |"))
+    print(flush=True)
+    posegraph_steps(card, runs)
     return 0
 
 

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import cuda_surf_tpu_torch as cst
+from cuda_surf_tpu_torch import _build
 from cuda_surf_tpu_torch.io import render_plane_sequence
 from cuda_surf_tpu_torch.ops import fused_detect as tfd
 from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, describe_plain
@@ -59,10 +60,11 @@ def test_kernel_a_matches_twin(cuda_device, source):
     h, w = img.shape
     ii = integral_image(torch.as_tensor(img, device=cuda_device))
     scheds = cfg.hessian_schedule(h, w)
-    before = tfd.fused_pyramid.launches
+    before = _build.launch_counts["surf_pyramid"]
     pyr_k, masks_k = tfd.fused_pyramid(ii, cfg, h, w)
     torch.cuda.synchronize()
-    assert tfd.fused_pyramid.launches == before + 1   # every octave at once
+    # every octave at once
+    assert _build.launch_counts["surf_pyramid"] == before + 1
     n_cand = 0
     for o, p in enumerate(response_pyramid(ii, cfg, h, w)):
         assert torch.equal(pyr_k[o], p), o
@@ -111,13 +113,13 @@ def test_kernel_d_matches_twin(cuda_device, source):
                                       cfg, compute_descriptors=False)
         kp = [k.x, k.y, k.scale, k.valid]
     ii = integral_image(torch.as_tensor(img, device=cuda_device))
-    before = assign_orientations.launches
+    before = _build.launch_counts["surf_orient"]
     got = assign_orientations(ii, cfg, *kp)
     again = assign_orientations(ii, cfg, *kp)
     plain = assign_orientations_plain(ii, cfg, *kp)
     ws, wa = orientation_windows(ii, *kp)
     torch.cuda.synchronize()
-    assert assign_orientations.launches == before + 2
+    assert _build.launch_counts["surf_orient"] == before + 2
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     valid = kp[3].cpu().numpy()
     assert valid.sum() >= 20
@@ -290,10 +292,10 @@ def _stack_scene(device, upright):
 def test_stacked_kernel_b_matches_twin_and_single_frame_rows(cuda_device,
                                                              upright):
     cfg, ii, geom, valid, frame, K = _stack_scene(cuda_device, upright)
-    before = stacked_rows.launches
+    before = _build.launch_counts["surf_describe_stacked"]
     rows = descriptor_rows(ii, cfg, *geom, valid, frame=frame)
     torch.cuda.synchronize()
-    assert stacked_rows.launches == before + 1
+    assert _build.launch_counts["surf_describe_stacked"] == before + 1
     assert torch.equal(rows, stacked_rows(ii, cfg, *geom, valid, frame=frame))
     twin = describe_plain(ii, cfg, *geom, valid, frame=frame)
     live = (twin.abs().sum(1) > 0).cpu().numpy()
@@ -334,11 +336,11 @@ def test_step_kernel_matches_twin_and_kernel_b(cuda_device, mode):
     ref = single_rows(ii, cfg, *geom, v)
     n_taken = 0
     for sd in tpw.STEP_KERNELS:
-        before = step_rows.launches
+        before = _build.launch_counts["surf_describe_step"]
         rows, taken = step_rows(ii, cfg, *geom, v, elig=v, sd=sd)
         rows_p, taken_p = step_rows_plain(ii, cfg, *geom, v, elig=v, sd=sd)
         torch.cuda.synchronize()
-        assert step_rows.launches == before + 1
+        assert _build.launch_counts["surf_describe_step"] == before + 1
         assert torch.equal(taken, taken_p)
         assert torch.equal(rows[taken], ref[taken]) and not rows[~taken].any()
         assert torch.equal(rows, step_rows(ii, cfg, *geom, v, elig=v,
@@ -424,10 +426,10 @@ def test_kernel_a_on_a_stack_equals_per_frame(cuda_device):
     ii = torch.stack([integral_image(torch.as_tensor(f, device=cuda_device))
                       for f in frames])
     scheds = cfg.hessian_schedule(h, w)
-    before = tfd.fused_pyramid.launches
+    before = _build.launch_counts["surf_pyramid"]
     pyr_b, masks_b = tfd.fused_pyramid(ii, cfg, h, w)
     torch.cuda.synchronize()
-    assert tfd.fused_pyramid.launches == before + 1
+    assert _build.launch_counts["surf_pyramid"] == before + 1
     for f in range(3):
         pyr_1, masks_1 = tfd.fused_pyramid(ii[f], cfg, h, w)
         for o, p in enumerate(response_pyramid(ii[f], cfg, h, w)):

@@ -13,8 +13,9 @@ fields compared as their int32 bits, so NaN payloads count too): on a
 configuration and a doubled frame; on a stack of 8 frames, where each
 frame's keypoints also equal the frame's own call; on dense random masks
 that overflow both the capacity and the max(cap // 8, 64) walker set; and
-on a frame with no candidate.  One call is one count on `detect.launches`,
-one call of the kernel library and no host synchronisation.
+on a frame with no candidate.  One call is one count of `surf_extrema`
+on `_build.launch_counts`, one call of the kernel library and no host
+synchronisation.
 """
 
 import numpy as np
@@ -131,8 +132,8 @@ def test_kernel_f_overflows_cap_and_walkers_like_the_twin(cuda_device):
 
 def test_kernel_f_empty_frame_launches_and_refusals(cuda_device):
     """No candidate: every slot empty, as the twin's.  One call: one count
-    on detect.launches, one call of the kernel library (its three
-    launches) and no host synchronisation.  Mixed devices, wrong types and
+    of `surf_extrema` on `_build.launch_counts`, one call of the kernel
+    library (its three launches) and no host synchronisation.  Mixed devices, wrong types and
     shapes raise."""
     cfg = cst.SurfConfig(**VO_CONFIG)
     frame = render_plane_sequence(1, 480, 640, seed=5)[0][0]
@@ -144,7 +145,7 @@ def test_kernel_f_empty_frame_launches_and_refusals(cuda_device):
 
     detect(pyr, scheds, cfg, masks)    # the plan is built and copied once
     torch.cuda.synchronize()
-    before = detect.launches
+    before = _build.launch_counts["surf_extrema"]
     with _build.record_launches() as rec:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -152,7 +153,7 @@ def test_kernel_f_empty_frame_launches_and_refusals(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert detect.launches == before + 1
+    assert _build.launch_counts["surf_extrema"] == before + 1
     assert [name for name, *_ in rec] == ["surf_extrema"]
 
     bad = [
@@ -171,4 +172,4 @@ def test_kernel_f_empty_frame_launches_and_refusals(cuda_device):
             detect(p, scheds, cfg, m, **kw)
     with pytest.raises(ValueError):
         detect(pyr, scheds, cfg, masks, cap=0)
-    assert detect.launches == before + 1
+    assert _build.launch_counts["surf_extrema"] == before + 1

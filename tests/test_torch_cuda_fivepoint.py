@@ -33,7 +33,7 @@ import pytest
 import torch
 
 import cuda_surf_tpu_torch as cst
-from cuda_surf_tpu_torch import Intrinsics, Surf, SurfConfig
+from cuda_surf_tpu_torch import Intrinsics, Surf, SurfConfig, _build
 from cuda_surf_tpu_torch.config import MAIN_CONFIG
 from cuda_surf_tpu_torch.geometry import epipolar as tep
 from cuda_surf_tpu_torch.geometry import fivepoint as tfp
@@ -131,7 +131,7 @@ def test_kernel_e_launches_once_without_sync_and_refuses(cuda_device):
     x1, x2 = (torch.as_tensor(a, device=cuda_device) for a in (x1, x2))
     tfp.five_point(x1, x2, gn_iters=4)         # builds the kernel library
     torch.cuda.synchronize()
-    before = tfp.five_point.launches
+    before = _build.launch_counts["surf_fivepoint"]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("error")
@@ -140,7 +140,7 @@ def test_kernel_e_launches_once_without_sync_and_refuses(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-    assert tfp.five_point.launches == before + 1
+    assert _build.launch_counts["surf_fivepoint"] == before + 1
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "fivepoint" in kernels[0], kernels

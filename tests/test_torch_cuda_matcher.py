@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_surf_tpu_torch import _build
 from cuda_surf_tpu_torch.ops import matcher_kernel
 from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
 from torch_parity import cuda_device, unit_rows  # noqa: F401
@@ -36,10 +37,10 @@ def test_kernel_c_pairs_in_one_launch(cuda_device, monkeypatch, depth):
     valid2[3] = False
     t = lambda a: torch.as_tensor(a, device=cuda_device)
     d1, d2, valid2 = t(d1), t(d2), t(valid2)
-    before = fused_best2.launches
+    before = _build.launch_counts["surf_best2"]
     out = fused_best2(d1, d2, valid2)
     torch.cuda.synchronize()
-    assert fused_best2.launches == before + 1
+    assert _build.launch_counts["surf_best2"] == before + 1
     bp, sp, ip = _best2_plain(d1, d2, valid2)
     assert (out[0] - bp).abs().max().item() <= 1e-5
     assert (out[1] - sp).abs().max().item() <= 1e-5

@@ -28,14 +28,11 @@ import numpy as np
 import pytest
 import torch
 
-from cuda_surf_tpu_torch import BatchSurf, SurfConfig
+from cuda_surf_tpu_torch import BatchSurf, SurfConfig, _build
 from cuda_surf_tpu_torch.ba import core as tba
 from cuda_surf_tpu_torch.ba.distributed import (make_distributed_lm,
                                                 shard_problem)
 from cuda_surf_tpu_torch.io.synth import ba_problem, render_plane_sequence
-from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
-from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-from cuda_surf_tpu_torch.ops.patch_wavelets import stacked_rows
 from cuda_surf_tpu_torch.parallel import global_mesh, initialize_from_env
 from cuda_surf_tpu_torch.parallel.dryrun import free_port
 from cuda_surf_tpu_torch.slam import posegraph
@@ -45,7 +42,7 @@ from torch_parity import (assert_ranks_equal, cuda_device,  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 KW = dict(noctaves=2, max_pts=256, candidates_per_octave=512)
-KERNELS = dict(A=fused_pyramid, B=stacked_rows, C=fused_best2)
+KERNELS = dict(A="surf_pyramid", B="surf_describe_stacked", C="surf_best2")
 
 
 def _frames():
@@ -101,14 +98,13 @@ def test_world_of_one_nccl_is_single_device(cuda_device, monkeypatch):
         assert initialize_from_env(backend="nccl", device="cuda:0")
         mesh = global_mesh()
         assert (mesh.size, mesh.backend) == (1, "nccl")
-        for k in KERNELS.values():
-            k.launches = 0
+        before = _build.launch_counts.copy()
         bs = BatchSurf(SurfConfig(**KW), device="cuda", mesh=mesh)
         km, dm = bs.detect_and_compute(_frames())
         bs.match(km, dm, km, dm)
         torch.cuda.synchronize()
-        assert {k: f.launches for k, f in KERNELS.items()} == \
-            dict(A=1, B=1, C=1)
+        assert {k: _build.launch_counts[e] - before[e]
+                for k, e in KERNELS.items()} == dict(A=1, B=1, C=1)
         assert all(torch.equal(a, b) for a, b in zip(km, ks))
         assert torch.equal(dm, ds)
         sprob, sstate = shard_problem(prob, state, mesh)

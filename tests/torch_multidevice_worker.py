@@ -74,14 +74,10 @@ def task_batch(mesh, inp):
     """BatchSurf(mesh=) on the frames and its match of frame i -> i + 1,
     with each kernel's launches on the rank (A, the stacked B, C; 0 on the
     CPU, where the wrappers run their twins)."""
-    from cuda_surf_tpu_torch import BatchSurf, SurfConfig
-    from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
-    from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-    from cuda_surf_tpu_torch.ops.patch_wavelets import stacked_rows
+    from cuda_surf_tpu_torch import BatchSurf, SurfConfig, _build
     from cuda_surf_tpu_torch.types import Keypoints
-    kernels = dict(A=fused_pyramid, B=stacked_rows, C=fused_best2)
-    for k in kernels.values():
-        k.launches = 0
+    kernels = dict(A="surf_pyramid", B="surf_describe_stacked", C="surf_best2")
+    before = _build.launch_counts.copy()
     cfg = SurfConfig(**json.loads(str(inp["cfg"])))
     bs = BatchSurf(cfg, mesh.device.type, mesh=mesh)
     kps, descs = bs.detect_and_compute(inp["frames"])
@@ -92,8 +88,9 @@ def task_batch(mesh, inp):
         torch.cuda.synchronize()
     res = {f"kp_{k}": v for k, v in kps._asdict().items()}
     res.update(descs=descs, match_score=m.score, match_index=m.index,
-               **{f"launches_{k}": np.int64(fn.launches)
-                  for k, fn in kernels.items()})
+               **{f"launches_{k}": np.int64(_build.launch_counts[entry]
+                                            - before[entry])
+                  for k, entry in kernels.items()})
     return res
 
 
