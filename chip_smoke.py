@@ -46,16 +46,19 @@ config and matches frame i -> i + 1 with BatchSurf.match.  The script
      and subpixel walk, on each frame of the main pair, on the batch's 8
      frames in one call and on a 640x480 terrain frame at the VO config:
      every output field and the counts bit for bit, one launch a call, and
-     how many step-1 movers there were beside the walker set);
+     how many step-1 movers there were beside the walker set; G, the
+     integral image, on the main frame, the batch's 8 frames in one call,
+     the 640x480 terrain frame and the doubled main frame: bit for bit, one
+     launch a call);
   4. for each path, snapshots `_build.launch_counts`, runs it, checks that
-     every kernel of the path launched (kernel A once per frame on the pair
-     paths, once per batch on the batch path) and no other did, and holds
-     the keypoints and the mean best score against the path's JAX golden
-     fixture (cuda_surf_tpu_torch/data/golden_plane_*.npz; the rotated ones
-     also hold the orientations, to 1e-3 rad wherever the gap is >= 1e-5
-     and to one of the two top windows below it; the batch one also the
-     Laplacian signs and the zero padding).  The batch must also equal the
-     port's own single-frame path frame by frame, exactly, and the
+     every kernel of the path launched (kernels A and G once per frame on
+     the pair paths, once per batch on the batch path) and no other did,
+     and holds the keypoints and the mean best score against the path's JAX
+     golden fixture (cuda_surf_tpu_torch/data/golden_plane_*.npz; the
+     rotated ones also hold the orientations, to 1e-3 rad wherever the gap
+     is >= 1e-5 and to one of the two top windows below it; the batch one
+     also the Laplacian signs and the zero padding).  The batch must also
+     equal the port's own single-frame path frame by frame, exactly, and the
      step-routed path the main path's descriptors;
   5. drives the visual-odometry paths after the frontend's, each with its
      launches counted:
@@ -184,7 +187,7 @@ from cuda_surf_tpu_torch.ops.extrema import (_candidate_mask, _detect_plain,
                                              detect)
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid
 from cuda_surf_tpu_torch.ops.hessian import response_pyramid
-from cuda_surf_tpu_torch.ops.integral import integral_image
+from cuda_surf_tpu_torch.ops.integral import _integral_plain, integral_image
 from cuda_surf_tpu_torch.ops.matcher_kernel import _best2_plain, fused_best2
 from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
                                                  assign_orientations_plain,
@@ -291,7 +294,7 @@ def check_kernel_a_stack(cfg, frames_dev):
     call, masks equal to both."""
     h, w = frames_dev[0].shape
     scheds = cfg.hessian_schedule(h, w)
-    ii = torch.stack([integral_image(f, cfg.doubled) for f in frames_dev])
+    ii = integral_image(torch.stack(frames_dev), cfg.doubled)
     before = _build.launch_counts["surf_pyramid"]
     pyr_b, masks_b = fused_pyramid(ii, cfg, h, w)
     if _build.launch_counts["surf_pyramid"] != before + 1:
@@ -422,7 +425,7 @@ def check_kernel_b_stacked(frames_dev):
     kb, _ = detect_and_compute_batch(torch.stack(frames_dev),
                                      SurfConfig(**MAIN_CONFIG),
                                      compute_descriptors=False)
-    ii = torch.stack([integral_image(f) for f in frames_dev])
+    ii = integral_image(torch.stack(frames_dev))
     ori = torch.stack([assign_orientations(ii[f], cfg_rot, kb.x[f], kb.y[f],
                                            kb.scale[f], kb.valid[f])
                        for f in range(B)])
@@ -535,10 +538,9 @@ def f_inputs(cfg, frames):
     """Kernel A's layers and masks of a (H, W) frame or a (B, H, W) stack,
     the schedule and B: what `detect` takes."""
     h, w = frames.shape[-2:]
-    stack = frames if frames.ndim == 3 else frames[None]
-    ii = torch.stack([integral_image(f, cfg.doubled) for f in stack])
-    pyr, masks = fused_pyramid(ii if frames.ndim == 3 else ii[0], cfg, h, w)
-    return pyr, masks, cfg.hessian_schedule(h, w), stack.shape[0]
+    pyr, masks = fused_pyramid(integral_image(frames, cfg.doubled), cfg, h, w)
+    return (pyr, masks, cfg.hessian_schedule(h, w),
+            frames.shape[0] if frames.ndim == 3 else 1)
 
 
 def check_kernel_f(cases, card):
@@ -566,6 +568,23 @@ def check_kernel_f(cases, card):
                           walkers=int(got["walkers"]), walker_set=walker_set,
                           overflow=int(got["walkers"]) > walker_set)
     emit(dict(phase="kernel_check", kernel="F", bit_equal=True, cases=rows,
+              card=card))
+
+
+def check_kernel_g(cases, card):
+    """Kernel G vs the twin `_integral_plain` on the card, bit for bit, one
+    library call a call; each case (name, frame or stack, doubled)."""
+    rows = {}
+    for name, frames, doubled in cases:
+        before = _build.launch_counts["surf_integral"]
+        got = integral_image(frames, doubled)
+        if _build.launch_counts["surf_integral"] != before + 1:
+            raise AssertionError(f"kernel G {name}: not one launch a call")
+        if not torch.equal(got, _integral_plain(frames, doubled)):
+            raise AssertionError(f"kernel G {name}: differs from the twin")
+        rows[name] = dict(shape=list(frames.shape), doubled=doubled,
+                          out=list(got.shape), last=int(got[..., -1, -1].max()))
+    emit(dict(phase="kernel_check", kernel="G", bit_equal=True, cases=rows,
               card=card))
 
 
@@ -705,7 +724,7 @@ def load_golden(name, config):
 KERNELS = {"A": "surf_pyramid", "B": "surf_describe",
            "B_stacked": "surf_describe_stacked", "B_step": "surf_describe_step",
            "C": "surf_best2", "D": "surf_orient", "E": "surf_fivepoint",
-           "F": "surf_extrema"}
+           "F": "surf_extrema", "G": "surf_integral"}
 
 
 def launches_since(snap) -> dict:
@@ -784,8 +803,8 @@ def run_batch_path(cfg, frames, golden):
     frames_of = lambda k, sl: Keypoints(*[a[sl] for a in k])
     m = bs.match(frames_of(kb, slice(0, B - 1)), db[:-1],
                  frames_of(kb, slice(1, B)), db[1:])
-    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1, "F": 1},
-                         snap)
+    counts = read_counts("batch", {"A": 1, "B_stacked": 1, "C": 1, "F": 1,
+                                   "G": 1}, snap)
     if db.shape != (B, cfg.max_pts, cfg.nfeatures) or \
             kb.count.shape != (B,) or kb.x.shape != (B, cfg.max_pts):
         raise AssertionError("batch: outputs malformed")
@@ -830,7 +849,8 @@ def run_step_routed_path(cfg, frames, golden, descs_main):
     try:
         _, descs = run_path(
             "step_routed", cfg, frames, golden,
-            {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1, "F": 2})
+            {"A": 2, "B": 2, "B_step": 2 * len(STEP_SDS), "C": 1, "F": 2,
+             "G": 2})
     finally:
         patch_wavelets.DEC_STEPS = ()
     for a, b in zip(descs, descs_main):
@@ -898,8 +918,8 @@ def run_track_path():
     snap = _build.launch_counts.copy()
     (k1, d1), (k2, d2) = [surf.detect_and_compute(f) for f in g["frames"]]
     res = track_pair(k1, d1, k2, d2, intr, raw=raw)
-    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1, "F": 2},
-                         snap)
+    counts = read_counts("track", {"A": 2, "B": 2, "C": 1, "E": 1, "F": 2,
+                                   "G": 2}, snap)
     kp_counts = [int(k1.count), int(k2.count)]
     if kp_counts != g["counts"].tolist():
         raise AssertionError(f"track: keypoints {kp_counts}, JAX golden "
@@ -1043,13 +1063,14 @@ def run_vo_path():
                 torch.cuda.synchronize()
                 check_launches(f"vo {run} seed {seed} frame {i}",
                                launches_since(before),
-                               dict(A=1, B=1, F=1, **({"C": 1, "E": 1} if i
-                                                      else {})))
+                               dict(A=1, B=1, F=1, G=1,
+                                    **({"C": 1, "E": 1} if i else {})))
             total = read_counts(f"vo {run}", {"A": len(frames),
                                               "B": len(frames),
                                               "C": len(frames) - 1,
                                               "E": len(frames) - 1,
-                                              "F": len(frames)}, snap)
+                                              "F": len(frames),
+                                              "G": len(frames)}, snap)
             counts = counts or total
             traj = pipe.trajectory()
             if not np.isfinite(traj).all():
@@ -1073,8 +1094,8 @@ def run_vo_path():
                              "plain x 1.15")
     emit(dict(phase="vo_path", frames=len(frames), seeds=list(VO_SEEDS),
               runs=runs, launches_per_frame=dict(
-                  first={"A": 1, "B": 1, "F": 1},
-                  after={"A": 1, "B": 1, "C": 1, "E": 1, "F": 1}),
+                  first={"A": 1, "B": 1, "F": 1, "G": 1},
+                  after={"A": 1, "B": 1, "C": 1, "E": 1, "F": 1, "G": 1}),
               launches=counts))
 
 
@@ -1229,12 +1250,12 @@ def run_loops_phase():
             pairs = 1 + n_ver      # the tracked pair and each verification
             check_launches(f"loops seed {seed} frame {f}",
                            launches_since(before),
-                           dict(A=1, B=1, F=1, **({"C": pairs, "E": pairs}
-                                                  if f else {})))
+                           dict(A=1, B=1, F=1, G=1,
+                                **({"C": pairs, "E": pairs} if f else {})))
         det = pipe._detector
         total = read_counts(f"loops seed {seed}", {
             "A": len(frames), "B": len(frames), "F": len(frames),
-            "C": len(frames) - 1 + det.n_verifications,
+            "G": len(frames), "C": len(frames) - 1 + det.n_verifications,
             "E": len(frames) - 1 + det.n_verifications}, snap)
         counts = counts or total
         jver = [tuple(int(x) for x in v[1:]) for v in g["ver"]
@@ -1290,10 +1311,11 @@ def run_loops_phase():
               runs=rows, median=med, jax_median=jmed,
               median_seeds_0_3=med4, jax_median_seeds_0_3=jmed4,
               resume=resume,
-              launches_per_frame=dict(first={"A": 1, "B": 1, "F": 1}, after={
-                  "A": 1, "B": 1, "F": 1,
-                  "C": "1 + the frame's verifications",
-                  "E": "1 + the frame's verifications"}),
+              launches_per_frame=dict(
+                  first={"A": 1, "B": 1, "F": 1, "G": 1},
+                  after={"A": 1, "B": 1, "F": 1, "G": 1,
+                         "C": "1 + the frame's verifications",
+                         "E": "1 + the frame's verifications"}),
               launches=counts))
 
 
@@ -1374,7 +1396,7 @@ MD_PG_STEPS = 2
 # graph's costs read 1.26e-4 relative (the second step's cost, 0.029: 3e-7
 # of the first), so they are held at the JAX test's 1e-3
 MD_TOL = dict(ba_cost_rtol=1e-4, ba_t=1e-4, pg_t=1e-4, pg_cost_rtol=1e-3)
-MD_LAUNCHES = {"A": 1, "B_stacked": 1, "C": 1, "F": 1}    # a rank's
+MD_LAUNCHES = {"A": 1, "B_stacked": 1, "C": 1, "F": 1, "G": 1}  # a rank's
 
 
 def md_inputs(frames):
@@ -1604,7 +1626,7 @@ def main() -> int:
                    "doubled")
 
     # A and F: one launch a frame
-    pair_kernels = {"A": 2, "B": 2, "C": 1, "F": 2}
+    pair_kernels = {"A": 2, "B": 2, "C": 1, "F": 2, "G": 2}
     kps, descs = run_path("main", cfg, frames, golden["main"], pair_kernels)
     for name in ("rotated", "doubled", "doubled_rotated"):
         expected = dict(pair_kernels, **({} if cfgs[name].upright
@@ -1619,6 +1641,11 @@ def main() -> int:
         ("batch8", cfg, torch.stack(batch_dev)),
         ("vo_640x480", SurfConfig(**VO_CONFIG),
          torch.as_tensor(vo_frame).cuda())], card)
+    check_kernel_g([
+        ("main_left", frames_dev[0], False),
+        ("batch8", torch.stack(batch_dev), False),
+        ("vo_640x480", torch.as_tensor(vo_frame).cuda(), False),
+        ("doubled", frames_dev[0], True)], card)
     check_kernel_c(descs[0], descs[1], kps[1].valid)
     check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
     check_kernel_c_pairs(db[:-1].contiguous(), db[1:].contiguous(),

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # fields, ifields, stream
     "surf_extrema": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P,
                      _P, _P],
+    # src, nframes, h, w, rows, vec, scratch, out, stream
+    "surf_integral": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -144,12 +144,13 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
     (B,) count, (B, max_pts, nfeatures) descriptors), on the images'
     device: the throughput form of the pipeline.
 
-    Kernel A runs once on the (B, ih, iw) stack of integral images.  The
-    compaction, the subpixel walk and makePoint run ONCE over the union of
-    the B frames' candidates; the union is frame-major and stable, so each
-    frame's keypoints are a contiguous run, which one gather spreads to the
-    (B, max_pts) layout with zero-filled padding slots (the single-frame
-    path leaves makePoint of zeroed coordinates there).  Then ONE launch of
+    Kernel G makes the (B, ih, iw) stack of integral images in one call
+    and kernel A runs once on it.  The compaction, the subpixel walk and
+    makePoint run ONCE over the union of the B frames' candidates; the
+    union is frame-major and stable, so each frame's keypoints are a
+    contiguous run, which one gather spreads to the (B, max_pts) layout
+    with zero-filled padding slots (the single-frame path leaves makePoint
+    of zeroed coordinates there).  Then ONE launch of
     kernel B describes all B * max_pts slots over the (B, ih, iw) stack of
     integral images, each keypoint reading its own frame.
 
@@ -164,7 +165,7 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
 
     dev = images.device
     with span("surf.integral"):
-        ii = torch.stack([integral_image(im, cfg.doubled) for im in images])
+        ii = integral_image(images, cfg.doubled)
     with span("surf.pyramid"):
         pyr_b, mask_b = fused_pyramid(ii, cfg, h, w)
     with span("surf.detect"):

@@ -1,41 +1,108 @@
 """Integral image and box sums (port of cuda_surf_tpu/ops/integral.py).
 
-The GPU has fast prefix sums, so the integral image is a plain int32
-`cumsum`; the JAX package's triangular MXU scans and phase planes are a
-TPU workaround and are not ported.  Doubled mode upsamples the frame 2x
-before the sums.
+`integral_image` launches kernel G (csrc/integral.cu: three launches over
+a frame or a whole (B, H, W) stack, no host sync) on a CUDA tensor and
+runs the plain twin `_integral_plain`, two int32 `cumsum`s, on a CPU one;
+any other device raises.  The JAX package's triangular MXU scans and
+phase planes are a TPU workaround and are not ported.  Doubled mode
+upsamples the frame 2x before the sums, in eager torch on either device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
+
+# kernel G's blocks a SM that `band_rows` aims for, and its shortest band
+BLOCKS_PER_SM = 8
+MIN_BAND_ROWS = 8
+
 
 def integral_image(img: torch.Tensor, doubled: bool = False) -> torch.Tensor:
     """uint8 (H, W) -> int32 (H+1, W+1) zero-padded integral image:
     I[y, x] = sum(img[:y, :x]) (integralRow's (+1,+1) write offset,
-    surfd.cu:135-138).  With `doubled` the source is first upsampled 2x
-    bilinearly onto the (2H-1, 2W-1) grid, rounding half to even
-    (integralDoubleRow0U2, surfd.cu:186-205), so the result is (2H, 2W).
-    Exact: the averages are multiples of 1/4 below 2^10, and 255*2H*2W
-    stays below 2^31 for any frame the frontend takes."""
+    surfd.cu:135-138); a (B, H, W) stack -> (B, H+1, W+1), frame by frame.
+    With `doubled` the source is first upsampled 2x bilinearly onto the
+    (2H-1, 2W-1) grid, rounding half to even (integralDoubleRow0U2,
+    surfd.cu:186-205), so the result is (2H, 2W).  Exact: the averages are
+    multiples of 1/4 below 2^10, and 255*2H*2W stays below 2^31 for any
+    frame the frontend takes.
+
+    CUDA: kernel G, one library call of at most three launches whatever B;
+    the tensor must be a contiguous uint8 (H, W) or (B, H, W).  CPU: the
+    twin `_integral_plain`."""
+    dev = img.device
+    if dev.type == "cpu":
+        return _integral_plain(img, doubled)
+    if dev.type != "cuda":
+        raise ValueError(f"integral_image: unsupported device {dev}")
+    _build.require_cuda(img, "integral_image: img", torch.uint8)
+    if img.ndim not in (2, 3) or 0 in img.shape:
+        raise ValueError(f"integral_image: expected a (H, W) frame or a "
+                         f"(B, H, W) stack, got {tuple(img.shape)}")
+    if doubled:    # the rounded averages of uint8 values are uint8 values
+        img = _upsample(img.to(torch.int32)).to(torch.uint8)
+    B, h, w = img.shape if img.ndim == 3 else (1, *img.shape)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = _integral_cuda(img, band_rows(B, h, sms))
+    return out if img.ndim == 3 else out[0]
+
+
+def band_rows(nframes: int, h: int, sms: int) -> int:
+    """Kernel G's rows a band: as long as lets nframes x bands fill the
+    card with BLOCKS_PER_SM blocks a SM, and at least MIN_BAND_ROWS."""
+    want = BLOCKS_PER_SM * sms
+    return max(MIN_BAND_ROWS, -(-nframes * h // want))
+
+
+def _integral_cuda(src: torch.Tensor, rows: int) -> torch.Tensor:
+    """Kernel G on a contiguous uint8 (H, W) or (B, H, W) CUDA tensor at
+    bands of `rows` rows -> int32 (B, H+1, W+1)."""
+    B, h, w = src.shape if src.ndim == 3 else (1, *src.shape)
+    if w > 16 * 1024 or B > 65535:
+        raise ValueError(f"integral_image: {B} frames of width {w}; kernel "
+                         "G takes at most 65535 frames of width 16384")
+    dev = src.device
+    out = torch.empty((B, h + 1, w + 1), dtype=torch.int32, device=dev)
+    nbands = -(-h // rows)     # one band needs no scratch: a null pointer
+    scratch = torch.empty(B * nbands * (-(-w // 16) * 16) if nbands > 1
+                          else 0, dtype=torch.int32, device=dev)
+    vec = w % 16 == 0 and src.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        _build.launch("surf_integral", _build.ptr(src), B, h, w, rows,
+                      int(vec), _build.ptr(scratch), _build.ptr(out),
+                      _build.stream(dev))
+    return out
+
+
+def _upsample(src: torch.Tensor) -> torch.Tensor:
+    """int32 (..., h, w) -> (..., 2h-1, 2w-1): the frames upsampled 2x
+    bilinearly, rounding half to even (integralDoubleRow0U2)."""
+    *lead, h, w = src.shape
+    rn = lambda a, f: torch.round(a.to(torch.float32) * f).to(torch.int32)
+    up = torch.zeros((*lead, 2 * h - 1, 2 * w - 1), dtype=torch.int32,
+                     device=src.device)
+    up[..., 0::2, 0::2] = src
+    up[..., 0::2, 1::2] = rn(src[..., :, :-1] + src[..., :, 1:], 0.5)
+    up[..., 1::2, 0::2] = rn(src[..., :-1, :] + src[..., 1:, :], 0.5)
+    up[..., 1::2, 1::2] = rn(src[..., :-1, :-1] + src[..., :-1, 1:]
+                             + src[..., 1:, :-1] + src[..., 1:, 1:], 0.25)
+    return up
+
+
+def _integral_plain(img: torch.Tensor, doubled: bool = False) -> torch.Tensor:
+    """The twin of kernel G: `integral_image` in eager torch, on a
+    (..., H, W) tensor of any integer type."""
     src = img.to(torch.int32)
     if doubled:
-        h, w = src.shape
-        rn = lambda a, f: torch.round(a.to(torch.float32) * f).to(torch.int32)
-        up = torch.zeros((2 * h - 1, 2 * w - 1), dtype=torch.int32,
-                         device=img.device)
-        up[0::2, 0::2] = src
-        up[0::2, 1::2] = rn(src[:, :-1] + src[:, 1:], 0.5)
-        up[1::2, 0::2] = rn(src[:-1, :] + src[1:, :], 0.5)
-        up[1::2, 1::2] = rn(src[:-1, :-1] + src[:-1, 1:] + src[1:, :-1]
-                            + src[1:, 1:], 0.25)
-        src = up
-    h, w = src.shape
-    ii = torch.zeros((h + 1, w + 1), dtype=torch.int32, device=img.device)
+        src = _upsample(src)
+    *lead, h, w = src.shape
+    ii = torch.zeros((*lead, h + 1, w + 1), dtype=torch.int32,
+                     device=img.device)
     # dtype=int32 explicitly: torch's integer cumsum promotes to int64
-    ii[1:, 1:] = torch.cumsum(torch.cumsum(src, 0, dtype=torch.int32), 1,
-                              dtype=torch.int32)
+    ii[..., 1:, 1:] = torch.cumsum(torch.cumsum(src, -2, dtype=torch.int32),
+                                   -1, dtype=torch.int32)
     return ii
 
 

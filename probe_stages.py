@@ -31,9 +31,11 @@ doubled pair paths like the first table.
 
 With --kernels it times the kernels alone instead, at the main path's
 shapes: A on one frame, on the stack of BATCH_FRAMES frames and on the
-doubled frame (a 2560x1920 integral image); F, the compaction and subpixel
-walk, on frame 0 (F_frame), on the stack (F_stack) and on a 640x480
-terrain frame at the VO config (F_vo); E, the five-point solver, on the
+doubled frame (a 2560x1920 integral image); G, the integral image, on
+frame 0 (G_frame), on a stack of 32 frames (G_stack32) and on a 640x480
+terrain frame (G_vo); F, the compaction and subpixel walk, on frame 0
+(F_frame), on the stack (F_stack) and on the 640x480 terrain frame at the
+VO config (F_vo); E, the five-point solver, on the
 128 hypotheses of the track fixture's first JAX draw at gn_iters 4, as
 track_pair calls it; kernel B on frame 0's keypoints, upright / rotated x
 64 / 128-d; B_stacked on every frame's slots in one launch, 64-d; B_step,
@@ -52,7 +54,7 @@ the kernel's work takes on the card's published peaks
 (portbench/rooflines/peaks.py), `bound_share` that over `kernel_us`, and
 `bound_count` names where the work is counted: A and upright 64-d B by
 the benchmark's own counts (portbench/rooflines/detect.py, describe.py);
-C, D, E and F by this file's (`c_work`, `d_work`, `E_OPS_*`, `f_work`).  A
+C-G by this file's (`c_work`, `d_work`, `E_OPS_*`, `f_work`, `g_work`).  A
 mode that no count covers (doubled A; rotated, 128-d or doubled B) prints
 `bound_count` as the reason and no share.
 
@@ -217,8 +219,7 @@ def batch_stages(cfg: SurfConfig, imgs: torch.Tensor):
     """[(name, fn)] of one batch, each fn on fixed earlier outputs."""
     B, h, w = imgs.shape
     sched = cfg.hessian_schedule(h, w)
-    integrals = lambda: torch.stack([integral_image(im, cfg.doubled)
-                                     for im in imgs])
+    integrals = lambda: integral_image(imgs, cfg.doubled)
     ii = integrals()
     pyr, masks = fused_pyramid(ii, cfg, h, w)
     cand = detect(pyr, sched, cfg, cand_masks=masks, nframes=B)
@@ -315,6 +316,7 @@ E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
 # the fields, 20
 F_OPS_BYTE, F_OPS_FIT, F_OPS_SLOT = 2, 140, 20
 NO_COUNT = "the benchmark counts upright, 64-d, undoubled frames only"
+G_STACK = 32        # kernel G's stack: batch32's frames a request
 
 
 def own_us(fn) -> float:
@@ -391,6 +393,14 @@ def f_work(masks, out, walker_set):
             F_OPS_BYTE * mask_bytes + F_OPS_FIT * fits + F_OPS_SLOT * slots)
 
 
+def g_work(frames):
+    """Kernel G in one pass: each source byte read once, each int32 of the
+    (H+1, W+1) outputs written once; no floating-point operation."""
+    h, w = frames.shape[-2:]
+    n = frames.numel() // (h * w)
+    return (frames.numel() + 4 * n * (h + 1) * (w + 1), 0)
+
+
 def occupancy(h: int, w: int) -> dict:
     """Blocks and warps of the built kernels that fit one SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor through each kernel's
@@ -455,7 +465,7 @@ def kernel_table(imgs, runs, card, only, tag):
     cfg = SurfConfig(**MAIN_CONFIG)
     a_count = lambda frames: ("portbench/rooflines/detect.py", tuple(
         frames * v for v in detect_count.work(MAIN_CONFIG, h, w)))
-    ii = torch.stack([integral_image(im) for im in imgs])
+    ii = integral_image(imgs)
     report("A", lambda: fused_pyramid(ii[0], cfg, h, w),
            lambda: a_count(1), "A_main")
     report("A_stack", lambda: fused_pyramid(ii, cfg, h, w),
@@ -465,9 +475,15 @@ def kernel_table(imgs, runs, card, only, tag):
     report("A_doubled", lambda: fused_pyramid(iid, dcfg, h, w), NO_COUNT,
            "A_doubled")
     group = lambda g: any(o.startswith(g) or g.startswith(o) for o in only)
+    vo = torch.as_tensor(render_terrain_sequence(
+        n_frames=1, h=480, w=640)[0][0]).cuda()
+    if group("G_"):
+        stack = torch.as_tensor(main_batch(G_STACK)).cuda()
+        for name, frames in (("G_frame", imgs[0]), ("G_stack32", stack),
+                             ("G_vo", vo)):
+            report(name, lambda: integral_image(frames),
+                   lambda: ("probe_stages.g_work", g_work(frames)))
     if group("F_"):
-        vo = torch.as_tensor(render_terrain_sequence(
-            n_frames=1, h=480, w=640)[0][0]).cuda()
         for name, c, frames in (("F_frame", cfg, imgs[0]),
                                 ("F_stack", cfg, imgs),
                                 ("F_vo", SurfConfig(**VO_CONFIG), vo)):

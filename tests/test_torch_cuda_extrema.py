@@ -56,9 +56,7 @@ def _pyramid(frames, cfg, dev):
     """Kernel A's layers and masks of a (H, W) frame or a (B, H, W) stack."""
     img = torch.as_tensor(frames, device=dev)
     h, w = img.shape[-2:]
-    ii = (integral_image(img, cfg.doubled) if img.ndim == 2 else
-          torch.stack([integral_image(f, cfg.doubled) for f in img]))
-    pyr, masks = fused_pyramid(ii, cfg, h, w)
+    pyr, masks = fused_pyramid(integral_image(img, cfg.doubled), cfg, h, w)
     return pyr, masks, cfg.hessian_schedule(h, w)
 
 

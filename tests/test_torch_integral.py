@@ -20,6 +20,26 @@ def test_integral_image_bit_exact(hw):
     np.testing.assert_array_equal(a, b.numpy())
 
 
+@pytest.mark.parametrize("shape, doubled", [((3, 7, 13), False),
+                                            ((2, 41, 33), True),
+                                            ((4, 120, 160), False)])
+def test_integral_image_of_a_stack_is_per_frame(shape, doubled):
+    """The (B, H, W) form: each frame's integral image equals the frame's
+    own call and JAX's, bit for bit."""
+    rng = np.random.default_rng(sum(shape))
+    imgs = rng.integers(0, 256, shape, np.uint8)
+    b = ti.integral_image(torch.as_tensor(imgs), doubled)
+    h, w = (2 * shape[1], 2 * shape[2]) if doubled else (shape[1] + 1,
+                                                         shape[2] + 1)
+    assert b.dtype == torch.int32 and tuple(b.shape) == (shape[0], h, w)
+    for f, img in enumerate(imgs):
+        one = ti.integral_image(torch.as_tensor(img), doubled)
+        assert torch.equal(b[f], one)
+        np.testing.assert_array_equal(
+            np.asarray(ji.integral_image(jnp.asarray(img), doubled)),
+            b[f].numpy())
+
+
 def test_integral_of_white_frame_is_exact_int32():
     # 255 * 960 * 1280 = 313,344,000: needs exact int32, not f32
     img = np.full((960, 1280), 255, np.uint8)
