@@ -16,7 +16,8 @@ the step-routed path is the main path with patch_wavelets.DEC_STEPS = (4, 5,
 6, 7, 8), which sends the keypoints of those sampling steps through the
 static-step kernel.  The batch path runs Surf.detect_and_compute_batch on
 the 8 frames of io.main_batch (frames 0 and 1 are the main pair) at the main
-config and matches frame i -> i + 1 with BatchSurf.match.  The script
+config and matches frame i -> i + 1 with BatchSurf.match; the rotated batch
+path runs it at the rotated config.  The script
 
   1. prints the card (nvidia-smi), CUDA, nvcc and Triton versions;
   2. builds the kernels from cuda_surf_tpu_torch/csrc with nvcc, one
@@ -59,7 +60,10 @@ config and matches frame i -> i + 1 with BatchSurf.match.  The script
      is >= 1e-5 and to one of the two top windows below it; the batch one
      also the Laplacian signs and the zero padding).  The batch must also
      equal the port's own single-frame path frame by frame, exactly, and the
-     step-routed path the main path's descriptors;
+     step-routed path the main path's descriptors.  The rotated batch path
+     launches G, A, F, D and the stacked B once each; its orientations are
+     held against the twin with the frame index on the stack as D's are,
+     and every valid slot equals the single-frame rotated path bit for bit;
   5. drives the visual-odometry paths after the frontend's, each with its
      launches counted:
      - `track`: Surf + track_pair (5-point RANSAC) on frames 0 and 1 of the
@@ -426,18 +430,17 @@ def check_kernel_b_stacked(frames_dev):
                                      SurfConfig(**MAIN_CONFIG),
                                      compute_descriptors=False)
     ii = integral_image(torch.stack(frames_dev))
-    ori = torch.stack([assign_orientations(ii[f], cfg_rot, kb.x[f], kb.y[f],
-                                           kb.scale[f], kb.valid[f])
-                       for f in range(B)])
     flat = lambda a: a.reshape(-1)
     valid = flat(kb.valid)
     P = kb.capacity
     frame = torch.arange(B, dtype=torch.int32,
                          device=ii.device).repeat_interleave(P)
+    ori = assign_orientations(ii, cfg_rot, flat(kb.x), flat(kb.y),
+                              flat(kb.scale), valid, frame=frame)
     for mode in ("upright64", "rotated64"):
         cfg = SurfConfig(**dict(MAIN_CONFIG, **B_MODES[mode]))
         geom = desc_geometry(cfg, flat(kb.x), flat(kb.y), flat(kb.scale),
-                             flat(ori))
+                             ori)
         rows = stacked_rows(ii, cfg, *geom, valid, frame=frame)
         if rows.shape != (B * P, cfg.nfeatures):
             raise AssertionError(f"stacked B {mode}: rows {rows.shape}")
@@ -839,6 +842,62 @@ def run_batch_path(cfg, frames, golden):
               golden_mean_best=golden["mean_best"].tolist(),
               equals_single_frame_path=True, launches=counts))
     return kb, db
+
+
+def run_rotated_batch_path(cfg, frames):
+    """Surf.detect_and_compute_batch on the 8 frames at the rotated config,
+    counted: kernels G, A, F, D and the stacked B once each for the whole
+    batch, and neither the single-frame B nor C.  Each frame's orientations
+    held against the twin with the frame index on the stack (as
+    check_kernel_d holds a frame's), and every valid slot's keypoint,
+    orientation and descriptor equal bit for bit to the port's single-frame
+    rotated path; padding slots zero."""
+    B = frames.shape[0]
+    frames_dev = torch.as_tensor(frames).cuda()
+    snap = _build.launch_counts.copy()
+    kb, db = Surf(cfg, device="cuda").detect_and_compute_batch(frames_dev)
+    counts = read_counts("rotated batch", {"A": 1, "B_stacked": 1, "D": 1,
+                                           "F": 1, "G": 1}, snap)
+    ii = integral_image(frames_dev)
+    flat = lambda a: a.reshape(-1)
+    frame = torch.arange(B, dtype=torch.int32,
+                         device=ii.device).repeat_interleave(cfg.max_pts)
+    twin = assign_orientations_plain(ii, cfg, flat(kb.x), flat(kb.y),
+                                     flat(kb.scale), flat(kb.valid), frame)
+    gap, cand = top2_windows(*orientation_windows(
+        ii, flat(kb.x), flat(kb.y), flat(kb.scale), flat(kb.valid),
+        frame=frame))
+    v = flat(kb.valid)
+    near = v & (gap < GAP)
+    ori = flat(kb.ori)
+    worst = circ_diff(ori, twin)[v & ~near].max().item()
+    alt = torch.minimum(circ_diff(ori, cand[:, 0]),
+                        circ_diff(ori, cand[:, 1]))[near]
+    worst_near = alt.max().item() if alt.numel() else 0.0
+    if worst > 1e-4 or worst_near > 1e-4:
+        raise AssertionError(f"rotated batch: |d ori| {worst} against the "
+                             f"twin (near ties {worst_near}) > 1e-4 rad")
+    surf = Surf(cfg, device="cuda")
+    for f in range(B):
+        kp = Keypoints(*[a[f] for a in kb])
+        check_descriptors(f"rotated batch frame {f}", kp, db[f], cfg)
+        ks, ds = surf.detect_and_compute(frames_dev[f])
+        vf = kp.valid
+        same = torch.equal(ks.valid, vf) and torch.equal(ds[vf], db[f][vf])
+        for name in ("x", "y", "scale", "strength", "laplace", "ori",
+                     "octave"):
+            same = same and torch.equal(getattr(ks, name)[vf],
+                                        getattr(kp, name)[vf])
+            if getattr(kp, name)[~vf].any():
+                raise AssertionError(f"rotated batch frame {f}: padding of "
+                                     f"{name} is not zero")
+        if not same:
+            raise AssertionError(f"rotated batch frame {f} differs from the "
+                                 "single-frame rotated path")
+    emit(dict(phase="rotated_batch_path", frames=B,
+              keypoints=kb.count.tolist(), max_abs_err=worst,
+              near_ties=int(near.sum()), near_tie_max_err=worst_near,
+              equals_single_frame_path=True, launches=counts))
 
 
 def run_step_routed_path(cfg, frames, golden, descs_main):
@@ -1634,6 +1693,7 @@ def main() -> int:
         run_path(name, cfgs[name], frames, golden[name], expected)
     run_step_routed_path(cfg, frames, golden["main"], descs)
     kb, db = run_batch_path(cfg, batch_frames, golden["batch"])
+    run_rotated_batch_path(cfgs["rotated"], batch_frames)
 
     vo_frame = render_terrain_sequence(n_frames=1, h=480, w=640)[0][0]
     check_kernel_f([

@@ -55,8 +55,9 @@ _SIGNATURES = {
     # out, stream
     "surf_describe_step": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                            _I, _P, _P],
-    # ii, ih, iw, x, y, scale, valid, doubled, tab, K, out, stream
-    "surf_orient": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+    # ii, nframes, ih, iw, x, y, scale, valid, frame, doubled, tab, K, out,
+    # stream
+    "surf_orient": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     # blocks(out), warps per block(out)
     "surf_orient_occupancy": [_P, _P],
     # d1, d2, valid2, P, N1, N2, D, splits, part best/second/index, done,
@@ -180,8 +181,9 @@ def check(err: int, name: str) -> None:
 
 
 _recorded = None    # inside record_launches(): [(entry, start, end events)]
-# entry point name -> calls through `launch` in this process; read a
-# difference of two snapshots (`launch_counts.copy()`)
+# entry point name -> calls through `launch` in this process (a CUDA
+# graph's replay makes none); read a difference of two snapshots
+# (`launch_counts.copy()`)
 launch_counts: collections.Counter = collections.Counter()
 
 

@@ -31,7 +31,13 @@
 //     lower index on equal values;
 //   * the kernel computes the disc's centre, sample spacing and Haar size
 //     from x, y, scale itself (orientation.py:orient_geometry's expressions),
-//     so the wrapper launches it on the keypoint fields as they are.
+//     so the wrapper launches it on the keypoint fields as they are;
+//   * over a stack of B frames' integral images, keypoint k reads frame
+//     frame[k] at ii + frame[k] * ih * iw (a size_t offset), with x, y and
+//     the border tests frame-local, so its angle is the one the single-frame
+//     launch gives on that frame alone: the batch frontend orients all its
+//     B * max_pts slots in one launch.  A slot whose frame lies outside
+//     [0, nframes) is never read and gets 0, as an invalid slot does.
 //
 // Determinism: no float atomics.  Every bin's sums run over its samples in
 // increasing sample index, as in the first version, whose angles this one
@@ -114,22 +120,26 @@ struct WarpMem {
   float part[OR_NBIN], avg[OR_NBIN], pas[OR_NBIN + 2 * OR_HWN];
 };
 
-// x, y, scale: f32 (K,), valid: bool (K,);
+// x, y, scale: f32 (K,), valid: bool (K,); frame: int32 (K,), or null for
+// one frame (nframes is then ignored);
 // tab: f32 [lut1 (83) | bin centres (72) | base_l (72) | base_r (72)].
 __global__ void __launch_bounds__(OR_WARPS * 32)
-orient_kernel(const int* __restrict__ ii, int ih, int iw,
+orient_kernel(const int* __restrict__ ii, int nframes, int ih, int iw,
               const float* __restrict__ kx, const float* __restrict__ ky,
               const float* __restrict__ kscale, const bool* __restrict__ valid,
-              int doubled, const float* __restrict__ tab, int K,
-              float* __restrict__ out) {
+              const int* __restrict__ frame, int doubled,
+              const float* __restrict__ tab, int K, float* __restrict__ out) {
   __shared__ WarpMem mem[OR_WARPS];
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * OR_WARPS + (threadIdx.x >> 5);
   if (k >= K) return;   // a whole warp leaves: no lane waits for it below
-  if (!valid[k]) {      // invalid slot
+  const int f = frame != nullptr ? frame[k] : 0;
+  const int nf = frame != nullptr ? nframes : 1;
+  if (!valid[k] || f < 0 || f >= nf) {   // invalid slot, or off the stack
     if (lane == 0) out[k] = 0.f;
     return;
   }
+  ii += (size_t)f * ih * iw;   // the keypoint's frame; all else frame-local
   WarpMem& m = mem[threadIdx.x >> 5];
   // orient_geometry: centre round(x), round(y); spacing trunc(scale + 0.8);
   // Haar size trunc(2 scale + 1.6); all doubled first on a doubled image
@@ -283,14 +293,17 @@ orient_kernel(const int* __restrict__ ii, int ih, int iw,
   if (lane == 0) out[k] = __fdiv_rn(top_a, top);
 }
 
-extern "C" int surf_orient(const int* ii, int ih, int iw, const float* x,
-                           const float* y, const float* scale,
-                           const bool* valid, int doubled, const float* tab,
-                           int K, float* out, void* stream) {
+// One frame: ii (ih, iw), frame null.  A stack: ii (nframes, ih, iw) and
+// frame (K,), keypoint k in frame frame[k].
+extern "C" int surf_orient(const int* ii, int nframes, int ih, int iw,
+                           const float* x, const float* y, const float* scale,
+                           const bool* valid, const int* frame, int doubled,
+                           const float* tab, int K, float* out, void* stream) {
   if (K <= 0) return 0;
+  if (frame != nullptr && nframes <= 0) return (int)cudaErrorInvalidValue;
   orient_kernel<<<(K + OR_WARPS - 1) / OR_WARPS, OR_WARPS * 32, 0,
-                  (cudaStream_t)stream>>>(ii, ih, iw, x, y, scale, valid,
-                                          doubled, tab, K, out);
+                  (cudaStream_t)stream>>>(ii, nframes, ih, iw, x, y, scale,
+                                          valid, frame, doubled, tab, K, out);
   return (int)cudaGetLastError();
 }
 

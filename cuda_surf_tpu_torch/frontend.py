@@ -10,8 +10,8 @@ kernels are built at their first launch.
 
 The eager glue between the kernels is launch-bound: makePoint of one
 frame is about a hundred small launches.  `detect_and_compute_batch`
-runs F and makePoint once over the union of B frames' candidates, so a
-batch pays them once and not B times.
+runs F, makePoint, D and B once over the union of B frames' candidates,
+so a batch pays them once and not B times.
 """
 
 from __future__ import annotations
@@ -150,22 +150,23 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
     union is frame-major and stable, so each frame's keypoints are a
     contiguous run, which one gather spreads to the (B, max_pts) layout
     with zero-filled padding slots (the single-frame path leaves makePoint
-    of zeroed coordinates there).  Then ONE launch of
-    kernel B describes all B * max_pts slots over the (B, ih, iw) stack of
-    integral images, each keypoint reading its own frame.
-
-    Rotated mode (upright=False) maps the single-frame path over the
-    frames and stacks the results, as the JAX package does.
+    of zeroed coordinates there).  Rotated (upright=False), ONE launch of
+    kernel D orients all B * max_pts slots over the (B, ih, iw) stack of
+    integral images, each keypoint reading its own frame; then ONE launch
+    of kernel B describes them the same way.  A valid slot's keypoint,
+    orientation and descriptor are those of the single-frame path on its
+    frame.
     """
-    B, h, w = images.shape
-    if not cfg.upright and compute_descriptors:
-        kps, descs = zip(*[detect_and_compute(im, cfg) for im in images])
-        return (Keypoints(*[torch.stack(f) for f in zip(*kps)]),
-                torch.stack(descs))
-
-    dev = images.device
     with span("surf.integral"):
         ii = integral_image(images, cfg.doubled)
+    return _from_integral(ii, *images.shape, cfg, compute_descriptors)
+
+
+def _from_integral(ii: torch.Tensor, B: int, h: int, w: int, cfg: SurfConfig,
+                   compute_descriptors: bool = True):
+    """`detect_and_compute_batch` from the (B, ih, iw) stack of the frames'
+    integral images on: kernels A, F, makePoint, D and B."""
+    dev = ii.device
     with span("surf.pyramid"):
         pyr_b, mask_b = fused_pyramid(ii, cfg, h, w)
     with span("surf.detect"):
@@ -183,11 +184,17 @@ def detect_and_compute_batch(images: torch.Tensor, cfg: SurfConfig,
         return kps, torch.zeros((B, cfg.max_pts, cfg.nfeatures),
                                 dtype=torch.float32, device=dev)
     flat = lambda a: a.reshape(-1)
+    frame = torch.arange(B, dtype=torch.int32,
+                         device=dev).repeat_interleave(cfg.max_pts)
+    ori = flat(kps.ori)
+    if not cfg.upright:
+        with span("surf.orient"):     # 0 where invalid
+            ori = assign_orientations(ii, cfg, flat(x), flat(y), flat(scale),
+                                      flat(valid), frame=frame)
+        kps = kps._replace(ori=ori.reshape(B, cfg.max_pts))
     with span("surf.describe"):
-        frame = torch.arange(B, dtype=torch.int32,
-                             device=dev).repeat_interleave(cfg.max_pts)
-        desc = describe(ii, cfg, flat(x), flat(y), flat(scale),
-                        torch.zeros_like(flat(x)), flat(valid), frame=frame)
+        desc = describe(ii, cfg, flat(x), flat(y), flat(scale), ori,
+                        flat(valid), frame=frame)
         desc = torch.where(flat(valid)[:, None], desc, 0.0)
     return kps, desc.reshape(B, cfg.max_pts, cfg.nfeatures)
 
@@ -196,6 +203,30 @@ def _to_uint8(image, device) -> torch.Tensor:
     img = torch.as_tensor(np.asarray(image, np.uint8)
                           if not isinstance(image, torch.Tensor) else image)
     return img.to(device, torch.uint8)
+
+
+class _BatchGraph:
+    """`detect_and_compute_batch` at one (B, H, W) shape: kernel G run
+    eagerly on the caller's frames into an integral-image stack of its
+    own, then the rest of the pipeline captured as a CUDA graph over that
+    stack, so the graph's launch overlaps G.  The pipeline has no host
+    sync and no shape that depends on the data, so the graph is the eager
+    pipeline's launches, bit for bit; its outputs live in the graph's
+    memory pool and are copied out on each call."""
+
+    def __init__(self, images: torch.Tensor, cfg: SurfConfig):
+        self.cfg = cfg
+        self.ii = integral_image(images, cfg.doubled)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _from_integral(self.ii, *images.shape, cfg)
+
+    def __call__(self, images: torch.Tensor):
+        with span("surf.integral"):
+            integral_image(images, self.cfg.doubled, out=self.ii)
+        self.graph.replay()
+        kps, desc = self.out
+        return Keypoints(*[f.clone() for f in kps]), desc.clone()
 
 
 class Surf:
@@ -209,14 +240,30 @@ class Surf:
     def __init__(self, cfg: SurfConfig | None = None, device="cuda", **kw):
         self.cfg = cfg if cfg is not None else SurfConfig(**kw)
         self.device = require_device(device, "Surf")
+        self._batch_graphs = {}     # (B, H, W) -> None (seen once) | graph
 
     def detect_and_compute(self, image):
         return detect_and_compute(_to_uint8(image, self.device), self.cfg)
 
     def detect_and_compute_batch(self, images):
-        """(B, H, W) frames -> batched keypoints and descriptors."""
-        return detect_and_compute_batch(_to_uint8(images, self.device),
-                                        self.cfg)
+        """(B, H, W) frames -> batched keypoints and descriptors.
+
+        On the card the first call at a shape runs the pipeline eagerly
+        (and builds what it builds at first use); the second captures all
+        of it after kernel G as a CUDA graph, and that call and every
+        later one at the shape run G on the frames and replay the graph:
+        two launches in place of ~200, so the card no longer waits on the
+        host between them.  Every call returns tensors of its own."""
+        images = _to_uint8(images, self.device)
+        if images.device.type != "cuda":
+            return detect_and_compute_batch(images, self.cfg)
+        key = tuple(images.shape)
+        if key not in self._batch_graphs:
+            self._batch_graphs[key] = None
+            return detect_and_compute_batch(images, self.cfg)
+        if self._batch_graphs[key] is None:
+            self._batch_graphs[key] = _BatchGraph(images, self.cfg)
+        return self._batch_graphs[key](images)
 
     def match(self, kp1, desc1, kp2, desc2) -> Matches:
         return match_keypoints(kp1, desc1, kp2, desc2)

@@ -19,7 +19,8 @@ BLOCKS_PER_SM = 8
 MIN_BAND_ROWS = 8
 
 
-def integral_image(img: torch.Tensor, doubled: bool = False) -> torch.Tensor:
+def integral_image(img: torch.Tensor, doubled: bool = False,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """uint8 (H, W) -> int32 (H+1, W+1) zero-padded integral image:
     I[y, x] = sum(img[:y, :x]) (integralRow's (+1,+1) write offset,
     surfd.cu:135-138); a (B, H, W) stack -> (B, H+1, W+1), frame by frame.
@@ -30,11 +31,13 @@ def integral_image(img: torch.Tensor, doubled: bool = False) -> torch.Tensor:
     frame the frontend takes.
 
     CUDA: kernel G, one library call of at most three launches whatever B;
-    the tensor must be a contiguous uint8 (H, W) or (B, H, W).  CPU: the
-    twin `_integral_plain`."""
+    the tensor must be a contiguous uint8 (H, W) or (B, H, W); `out`, an
+    int32 (B, H+1, W+1) tensor (doubled: (B, 2H, 2W)), is written in
+    place of a new one.  CPU: the twin `_integral_plain`."""
     dev = img.device
     if dev.type == "cpu":
-        return _integral_plain(img, doubled)
+        res = _integral_plain(img, doubled)
+        return res if out is None else out.copy_(res)
     if dev.type != "cuda":
         raise ValueError(f"integral_image: unsupported device {dev}")
     _build.require_cuda(img, "integral_image: img", torch.uint8)
@@ -45,7 +48,7 @@ def integral_image(img: torch.Tensor, doubled: bool = False) -> torch.Tensor:
         img = _upsample(img.to(torch.int32)).to(torch.uint8)
     B, h, w = img.shape if img.ndim == 3 else (1, *img.shape)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = _integral_cuda(img, band_rows(B, h, sms))
+    out = _integral_cuda(img, band_rows(B, h, sms), out)
     return out if img.ndim == 3 else out[0]
 
 
@@ -56,15 +59,23 @@ def band_rows(nframes: int, h: int, sms: int) -> int:
     return max(MIN_BAND_ROWS, -(-nframes * h // want))
 
 
-def _integral_cuda(src: torch.Tensor, rows: int) -> torch.Tensor:
+def _integral_cuda(src: torch.Tensor, rows: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel G on a contiguous uint8 (H, W) or (B, H, W) CUDA tensor at
-    bands of `rows` rows -> int32 (B, H+1, W+1)."""
+    bands of `rows` rows -> int32 (B, H+1, W+1), in `out` if given."""
     B, h, w = src.shape if src.ndim == 3 else (1, *src.shape)
     if w > 16 * 1024 or B > 65535:
         raise ValueError(f"integral_image: {B} frames of width {w}; kernel "
                          "G takes at most 65535 frames of width 16384")
     dev = src.device
-    out = torch.empty((B, h + 1, w + 1), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((B, h + 1, w + 1), dtype=torch.int32, device=dev)
+    else:
+        _build.require_cuda(out, "integral_image: out", torch.int32)
+        if tuple(out.shape) != (B, h + 1, w + 1) or out.device != dev:
+            raise ValueError(f"integral_image: out is {tuple(out.shape)} on "
+                             f"{out.device}, expected {(B, h + 1, w + 1)} "
+                             f"on {dev}")
     nbands = -(-h // rows)     # one band needs no scratch: a null pointer
     scratch = torch.empty(B * nbands * (-(-w // 16) * 16) if nbands > 1
                           else 0, dtype=torch.int32, device=dev)

@@ -12,6 +12,10 @@ weighted magnitude.
 on the keypoints' x, y, scale and valid as they are (the kernel takes the
 disc's geometry from them itself), and runs the plain twin
 `assign_orientations_plain` on a CPU tensor; any other device raises.
+With a per-keypoint `frame` index the integral image is a (B, ih, iw)
+stack of B frames': every keypoint reads its own frame only, its x, y and
+border tests frame-local, so its angle is the one it gets on that frame
+alone (the batch frontend orients all its slots in one launch).
 The twin follows the JAX package's gather path:
 one-hot segment sums per chunk of keypoints, the +/-2pi wrapped copies of
 the angle-mass histogram, and the 11-bin window sums as full-fp32
@@ -129,12 +133,29 @@ def disc_positions() -> np.ndarray:
                           < ORADIUS_SQ)
 
 
-def disc_samples(ii, lut, cx, cy, step, pixsi, valid):
+def _stacked(ii, valid, frame):
+    """-> (ii as rows, ih, valid, base): with `frame` (k,), `ii` is a (B, ih,
+    iw) stack read as (B * ih, iw) rows, and keypoint k's rows start at
+    `base[k]`; a slot whose frame lies outside [0, B) is invalid and reads
+    frame 0.  Without, `ii` is one frame and `base` None."""
+    ih = ii.shape[-2]
+    if frame is None:
+        return ii, ih, valid, None
+    B = ii.shape[0]
+    valid = valid & (frame >= 0) & (frame < B)
+    return (ii.reshape(-1, ii.shape[-1]), ih, valid,
+            torch.clamp(frame, 0, B - 1).to(torch.int64) * ih)
+
+
+def disc_samples(ii, lut, cx, cy, step, pixsi, valid, frame=None):
     """-> (ok, bin, angle, psum), each (k, 361): per sample of the 19x19
     grid, in index order, whether it counts (inside the disc and the frame,
     nonzero gradient, valid keypoint), its histogram bin, its angle and
-    its Gaussian-weighted magnitude; angle is 0 where not ok."""
-    ih, iw = ii.shape
+    its Gaussian-weighted magnitude; angle is 0 where not ok.  With
+    `frame` (k,), `ii` is a (B, ih, iw) stack and keypoint k lies in frame
+    `frame[k]`."""
+    ii, ih, valid, base = _stacked(ii, valid, frame)
+    iw = ii.shape[-1]
     y1, x1, distsq = _sample_grid(ii.device)
     col = lambda a: a[:, None]
     xx = col(cx) + x1 * col(step)
@@ -146,6 +167,8 @@ def disc_samples(ii, lut, cx, cy, step, pixsi, valid):
     # sample reads the harmless (1, 1, size 0) wavelet instead
     xr = torch.where(ok, xx, 1).long()
     yr = torch.where(ok, yy, 1).long()
+    if base is not None:     # the frame's first row, after the border tests
+        yr = yr + col(base)
     sr = torch.where(ok, s, 0).long()
     dx = wavelet_dx(ii, xr, yr, sr).to(torch.float32) * _INV255
     dy = wavelet_dy(ii, xr, yr, sr).to(torch.float32) * _INV255
@@ -159,10 +182,11 @@ def disc_samples(ii, lut, cx, cy, step, pixsi, valid):
     return ok, hid, angle, psum
 
 
-def _histogram_chunk(ii, lut, cx, cy, step, pixsi, valid):
+def _histogram_chunk(ii, lut, cx, cy, step, pixsi, valid, frame=None):
     """-> (k, NBIN, 4) per-bin sums [count, angle, psum, angle*psum] for a
     chunk of keypoints (the JAX gather path's `one`, batched)."""
-    ok, hid, angle, psum = disc_samples(ii, lut, cx, cy, step, pixsi, valid)
+    ok, hid, angle, psum = disc_samples(ii, lut, cx, cy, step, pixsi, valid,
+                                        frame)
     onehot = (torch.where(ok, hid, NBIN)[..., None]
               == torch.arange(NBIN, device=ii.device)).to(torch.float32)
     vals = torch.stack([torch.ones_like(psum), angle, psum, angle * psum], -1)
@@ -197,10 +221,13 @@ def window_sums(sums: torch.Tensor, tab: dict):
 
 
 def orientation_windows(ii: torch.Tensor, x, y, scale, valid,
-                        doubled: bool = False):
-    """-> (win_sums, win_asums), each (K, NBIN), of the plain twin."""
+                        doubled: bool = False, frame=None):
+    """-> (win_sums, win_asums), each (K, NBIN), of the plain twin; with
+    `frame` (K,), `ii` is a (B, ih, iw) stack."""
     tab = tables(ii.device)
     geom = orient_geometry(x, y, scale, doubled) + (valid,)
+    if frame is not None:
+        geom += (frame,)
     K = x.shape[0]
     parts = [_histogram_chunk(ii, tab["lut"], *[a[k0:k0 + CHUNK] for a in geom])
              for k0 in range(0, K, CHUNK)]
@@ -221,21 +248,29 @@ def top2_windows(win_sums: torch.Tensor, win_asums: torch.Tensor):
 
 
 def assign_orientations_plain(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
-                              valid) -> torch.Tensor:
-    """Kernel D's plain twin -> (K,) float32 angles, 0 on invalid slots."""
+                              valid, frame=None) -> torch.Tensor:
+    """Kernel D's plain twin -> (K,) float32 angles, 0 on invalid slots
+    (and on slots whose `frame` lies outside the stack)."""
     win_sums, win_asums = orientation_windows(ii, x, y, scale, valid,
-                                              cfg.doubled)
+                                              cfg.doubled, frame)
     sel = torch.argmax(win_sums, dim=1, keepdim=True)  # first maximum
     ori = (torch.gather(win_asums, 1, sel) / torch.gather(win_sums, 1, sel))
+    if frame is not None:
+        valid = valid & (frame >= 0) & (frame < ii.shape[0])
     return torch.where(valid, ori[:, 0], 0.0)
 
 
 def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
-                        valid) -> torch.Tensor:
+                        valid, frame=None) -> torch.Tensor:
     """(K,) keypoints -> (K,) float32 orientations in radians, 0 on
-    invalid slots.  Kernel D on a CUDA tensor, the twin on a CPU one."""
+    invalid slots.  `ii` is one frame's (ih, iw) integral image, or with
+    `frame` (K,) int32 a (B, ih, iw) stack, keypoint k in frame
+    `frame[k]`.  Kernel D on a CUDA tensor, the twin on a CPU one."""
+    if ii.ndim != (2 if frame is None else 3):
+        raise ValueError(f"assign_orientations: ii must be (ih, iw), or "
+                         f"(B, ih, iw) with a frame index; got {ii.shape}")
     if ii.device.type == "cpu":
-        return assign_orientations_plain(ii, cfg, x, y, scale, valid)
+        return assign_orientations_plain(ii, cfg, x, y, scale, valid, frame)
     if ii.device.type != "cuda":
         raise ValueError(f"assign_orientations: unsupported device "
                          f"{ii.device}")
@@ -246,15 +281,22 @@ def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
     for name, t in (("x", x), ("y", y), ("scale", scale)):
         _build.require_cuda(t, name, torch.float32)
     _build.require_cuda(valid, "valid", torch.bool)
-    if not x.shape == y.shape == scale.shape == valid.shape == (K,):
-        raise ValueError("assign_orientations: x, y, scale and valid must "
-                         "all be (K,)")
+    fields = (x, y, scale, valid)
+    if frame is not None:
+        frame = frame.to(torch.int32).contiguous()
+        _build.require_cuda(frame, "frame", torch.int32)
+        fields += (frame,)
+    if any(t.shape != (K,) for t in fields):
+        raise ValueError("assign_orientations: x, y, scale, valid and frame "
+                         "must all be (K,)")
     ftab = tables(ii.device)["packed"]
     out = torch.empty((K,), dtype=torch.float32, device=ii.device)
-    ih, iw = ii.shape
+    nframes, ih, iw = (0, *ii.shape) if frame is None else ii.shape
     with torch.cuda.device(ii.device):
-        _build.launch("surf_orient", _build.ptr(ii), ih, iw, _build.ptr(x),
-                      _build.ptr(y), _build.ptr(scale), _build.ptr(valid),
+        _build.launch("surf_orient", _build.ptr(ii), nframes, ih, iw,
+                      _build.ptr(x), _build.ptr(y), _build.ptr(scale),
+                      _build.ptr(valid),
+                      None if frame is None else _build.ptr(frame),
                       int(cfg.doubled), _build.ptr(ftab), K, _build.ptr(out),
                       _build.stream(ii.device))
     return out

@@ -35,9 +35,8 @@ class BatchSurf:
     """Batched SURF frontend: `detect_and_compute` takes (B, H, W) uint8
     frames and returns Keypoints with (B, max_pts) fields and (B, max_pts,
     nfeatures) descriptors, those of `frontend.detect_and_compute_batch` on
-    the whole batch (kernel A once, one compaction and walk, kernel B once
-    over the frames a rank holds; rotated mode maps the single-frame
-    pipeline over them).
+    the whole batch (kernel A once, one compaction and walk, kernel D
+    once when rotated, kernel B once, over the frames a rank holds).
 
     `BatchSurf(cfg, device="cuda")` raises if no card is present;
     `device="cpu"` runs the plain PyTorch twins.  With `mesh`, B must be a

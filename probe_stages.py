@@ -42,9 +42,9 @@ track_pair calls it; kernel B on frame 0's keypoints, upright / rotated x
 the static-step kernel at step 4; C on the descriptors of frames 0 -> 1
 at 64-d (C_d64) and 128-d (C_d128), on the BATCH_FRAMES - 1 pairs of
 consecutive frames in one launch (C_pairs) and in one launch a pair
-(C_each); D on frame 0's keypoints (D_frame) and on the doubled frame's
-(D_doubled).  One JSON object per kernel: `kernel_us`, the device time of
-the library call alone (CUDA events around it, `_build.record_launches`,
+(C_each); D on frame 0's keypoints (D_frame), on every frame's slots in
+one launch (D_stack) and on the doubled frame's (D_doubled).  One JSON
+object per kernel: `kernel_us`, the device time of the library call alone (CUDA events around it, `_build.record_launches`,
 median of 20 calls after 3), `ms` as above, `device_ops` and `device_us`
 from the profiler, `sha`, a hash of the output's bytes, so that two
 builds of the kernels can be held against each other bit for bit, and
@@ -52,11 +52,11 @@ builds of the kernels can be held against each other bit for bit, and
 warps of the built kernel that fit one SM).  `bound_us` is the least time
 the kernel's work takes on the card's published peaks
 (portbench/rooflines/peaks.py), `bound_share` that over `kernel_us`, and
-`bound_count` names where the work is counted: A and upright 64-d B by
-the benchmark's own counts (portbench/rooflines/detect.py, describe.py);
-C-G by this file's (`c_work`, `d_work`, `E_OPS_*`, `f_work`, `g_work`).  A
-mode that no count covers (doubled A; rotated, 128-d or doubled B) prints
-`bound_count` as the reason and no share.
+`bound_count` names where the work is counted: A, 64-d B and D by the
+benchmark's own counts (portbench/rooflines/detect.py, describe.py,
+describe_rotated.py, orient.py); C and E-G by this file's (`c_work`,
+`E_OPS_*`, `f_work`, `g_work`).  A mode that no count covers (doubled A;
+128-d or doubled B) prints `bound_count` as the reason and no share.
 
 With --track it splits the visual-odometry path instead: `track_pair` on
 the terrain fixture's 1280x960 pair (cuda_surf_tpu_torch/data/
@@ -111,8 +111,7 @@ from cuda_surf_tpu_torch.slam.tracking import (filter_matches, track_inputs,
                                                track_pair)
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
                                         DOUBLED_ROTATED_CONFIG, MAIN_CONFIG,
-                                        ORADIUS, ORADIUS_SQ, ROTATED_CONFIG,
-                                        VO_CONFIG)
+                                        ROTATED_CONFIG, VO_CONFIG)
 from cuda_surf_tpu_torch.frontend import (_make_keypoints, _spread_frames,
                                           detect_and_compute,
                                           detect_and_compute_batch)
@@ -123,12 +122,13 @@ from cuda_surf_tpu_torch.ops.extrema import detect
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
 from cuda_surf_tpu_torch.ops.integral import integral_image
 from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
-from cuda_surf_tpu_torch.ops.orientation import (assign_orientations,
-                                                 orient_geometry)
+from cuda_surf_tpu_torch.ops.orientation import assign_orientations
 from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows, step_rows
 from chip_smoke import B_MODES, DATA, PG_CASES, f_inputs, posegraph_case
 from portbench.rooflines import describe as describe_count
+from portbench.rooflines import describe_rotated as rotated_count
 from portbench.rooflines import detect as detect_count
+from portbench.rooflines import orient as orient_count
 from portbench.rooflines import peaks
 
 
@@ -297,25 +297,21 @@ def pair_table(paths, imgs, runs, card):
     print(flush=True)
 
 
-# The work of kernels C-F, counted from their twins' expressions; integer
-# and compare operations count at the float32 rate, as a multiply or an
-# add does.  Kernel D per live sample of the orientation disc (wavelets 14,
-# magnitude 8, atan2 20, bin and weight 6, the 5 histogram sums) and per
-# keypoint for its 72 windows.
-D_OPS_LIVE, D_OPS_WINDOWS = 53, 72 * 36
-# kernel E per hypothesis: 20 roots x 96 Durand-Kerner rounds of ~150
-# operations (ten complex differences and their product, a Horner chain of
-# ten complex multiply-adds, a complex division, the step's clamp), 20
-# candidates x ~1,100 a Gauss-Newton step (80 monomial terms, 40 products
-# of 20, the 3x3 normal equations) and ~10,000 for the constraint matrix,
-# the 10x10 solve and det B(z)
+# The work of kernels C, E and F, counted from their twins' expressions;
+# integer and compare operations count at the float32 rate, as a multiply
+# or an add does.  Kernel E per hypothesis: 20 roots x 96 Durand-Kerner
+# rounds of ~150 operations (ten complex differences and their product, a
+# Horner chain of ten complex multiply-adds, a complex division, the
+# step's clamp), 20 candidates x ~1,100 a Gauss-Newton step (80 monomial
+# terms, 40 products of 20, the 3x3 normal equations) and ~10,000 for the
+# constraint matrix, the 10x10 solve and det B(z)
 E_OPS_DK, E_OPS_GN_STEP, E_OPS_MATRICES = 20 * 96 * 150, 20 * 1100, 10000
 # kernel F: per mask byte the candidate test and its share of the scans, 2;
 # per fit the 19 stencil indices (4 each) and clamps (2), the gradient and
 # Hessian (19), the pivoted solve (42) and the strength (6), ~140; per slot
 # the fields, 20
 F_OPS_BYTE, F_OPS_FIT, F_OPS_SLOT = 2, 140, 20
-NO_COUNT = "the benchmark counts upright, 64-d, undoubled frames only"
+NO_COUNT = "the benchmark counts 64-d, undoubled frames only"
 G_STACK = 32        # kernel G's stack: batch32's frames a request
 
 
@@ -363,23 +359,6 @@ def c_work(d1, d2, valid2):
     scores = rows * d2.shape[-2]
     return (nbytes(d1, d2, valid2) + 12 * rows, 2 * scores,
             3 * 2 * scores * d1.shape[-1])
-
-
-def d_work(ii, doubled, x, y, scale, valid):
-    """Kernel D: in the integral image, x / y / scale / valid per slot and
-    its 299-float table, out the angles; the operations of the disc's
-    samples that lie inside the frame and of each keypoint's windows."""
-    cx, cy, step, s = (a[:, None] for a in orient_geometry(x, y, scale,
-                                                           doubled))
-    g = torch.arange(-ORADIUS, ORADIUS + 1, device=ii.device)
-    y1, x1 = g.repeat_interleave(g.numel()), g.repeat(g.numel())
-    xx, yy = cx + x1 * step, cy + y1 * step
-    ih, iw = ii.shape
-    live = ((yy + s + 2 < ih) & (yy - s > -1) & (xx + s + 2 < iw)
-            & (xx - s > -1) & (y1 * y1 + x1 * x1 < ORADIUS_SQ)
-            & valid[:, None])
-    return (nbytes(ii) + 17 * x.shape[0] + 4 * 299,
-            D_OPS_LIVE * int(live.sum()) + D_OPS_WINDOWS * int(valid.sum()))
 
 
 def f_work(masks, out, walker_set):
@@ -504,50 +483,60 @@ def kernel_table(imgs, runs, card, only, tag):
 
     kb, _ = detect_and_compute_batch(imgs, cfg, compute_descriptors=False)
     rcfg = SurfConfig(**ROTATED_CONFIG)
-    ori = torch.stack([assign_orientations(ii[f], rcfg, kb.x[f], kb.y[f],
-                                           kb.scale[f], kb.valid[f])
-                       for f in range(B)])
     flat = lambda a: a.reshape(-1)
     frame = torch.arange(B, dtype=torch.int32,
                          device=ii.device).repeat_interleave(kb.x.shape[1])
+    ori = assign_orientations(ii, rcfg, flat(kb.x), flat(kb.y),
+                              flat(kb.scale), flat(kb.valid),
+                              frame=frame).reshape(B, -1)
     frame_kps = lambda f, valid=None: SimpleNamespace(
-        x=kb.x[f], y=kb.y[f], scale=kb.scale[f],
+        x=kb.x[f], y=kb.y[f], scale=kb.scale[f], ori=ori[f],
         valid=kb.valid[f] if valid is None else valid)
-    b_count = lambda *kps: ("portbench/rooflines/describe.py", tuple(
-        map(sum, zip(*(describe_count.work(k, h, w) for k in kps)))))
+    counts = {"upright64": ("portbench/rooflines/describe.py",
+                            describe_count),
+              "rotated64": ("portbench/rooflines/describe_rotated.py",
+                            rotated_count)}
+    b_count = lambda *kps, mode="upright64": (counts[mode][0], tuple(
+        map(sum, zip(*(counts[mode][1].work(k, h, w) for k in kps)))))
     for mode, kw in B_MODES.items():
         c = SurfConfig(**dict(MAIN_CONFIG, **kw))
-        counted = mode == "upright64"
+        counted = mode in counts
         g0 = desc_geometry(c, kb.x[0], kb.y[0], kb.scale[0], ori[0])
         report(f"B_{mode}",
                lambda: descriptor_rows(ii[0], c, *g0, kb.valid[0]),
-               (lambda: b_count(frame_kps(0))) if counted else NO_COUNT,
-               f"B_{mode}")
+               (lambda: b_count(frame_kps(0), mode=mode)) if counted
+               else NO_COUNT, f"B_{mode}")
         if not c.extended:
             g = desc_geometry(c, flat(kb.x), flat(kb.y), flat(kb.scale),
                               flat(ori))
             report(f"B_stacked_{mode}",
                    lambda: descriptor_rows(ii, c, *g, flat(kb.valid),
                                            frame=frame),
-                   (lambda: b_count(*map(frame_kps, range(B)))) if counted
-                   else NO_COUNT, f"B_{mode}")
+                   (lambda: b_count(*map(frame_kps, range(B)), mode=mode))
+                   if counted else NO_COUNT, f"B_{mode}")
     g0 = desc_geometry(cfg, kb.x[0], kb.y[0], kb.scale[0], ori[0])
     v = kb.valid[0]
     step = lambda: step_rows(ii[0], cfg, *g0, v, elig=v, sd=4)
     report("B_step", lambda: step()[0],
            lambda: b_count(frame_kps(0, step()[1])))
 
+    d_count = lambda *kps, doubled=False: ("portbench/rooflines/orient.py",
+                                           tuple(map(sum, zip(*(
+                                               orient_count.work(k, h, w,
+                                                                 doubled)
+                                               for k in kps)))))
     report("D_frame", lambda: assign_orientations(
         ii[0], rcfg, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0]),
-        lambda: ("probe_stages.d_work", d_work(
-            ii[0], False, kb.x[0], kb.y[0], kb.scale[0], kb.valid[0])), "D")
+        lambda: d_count(frame_kps(0)), "D")
+    report("D_stack", lambda: assign_orientations(
+        ii, rcfg, flat(kb.x), flat(kb.y), flat(kb.scale), flat(kb.valid),
+        frame=frame), lambda: d_count(*map(frame_kps, range(B))), "D")
     if wanted("D_doubled"):
         drcfg = SurfConfig(**DOUBLED_ROTATED_CONFIG)
         kd, _ = detect_and_compute(imgs[0], drcfg, compute_descriptors=False)
         report("D_doubled", lambda: assign_orientations(
             iid, drcfg, kd.x, kd.y, kd.scale, kd.valid),
-            lambda: ("probe_stages.d_work", d_work(
-                iid, True, kd.x, kd.y, kd.scale, kd.valid)), "D")
+            lambda: d_count(kd, doubled=True), "D")
     if not group("C_"):
         return
     rows = {}
