@@ -96,8 +96,11 @@ path runs it at the rotated config.  The script
        draws within 2 % of JAX's inliers, at most VO_FAIL_RATE of the frames
        at <= 60 inliers, a median ATE at most VO_ATE_FACTOR x JAX's; the
        plain median ATE < 0.06 and the windowed one below the plain x 1.15.
-       Trajectories finite.  Launches A 1, B 1, F 1 a frame and C 1, E 1 a
-       frame after the first;
+       Trajectories finite.  Launches G 1 a frame, A 1, B 1, F 1 on each of
+       the first two (from the third the pipeline's Surf replays its CUDA
+       graph of A to B) and C 1, E 1 a frame after the first;
+       `frontend.graph_counts` reads that Surf's eager call at the first
+       frame, its capture at the second and one replay at each later one;
   6. drives the SLAM backend, each phase with its launches counted:
      - `posegraph`: the SE(3) circle graph of tests/test_posegraph.py at
        n = 64 (8 loops, dense path) and n = 600 (30 loops, CG path) and
@@ -111,7 +114,7 @@ path runs it at the rotated config.  The script
      - `loops`: SlamPipeline(loop_detect=True, loop_min_gap=6) over the VO
        cell's 12 frames at seeds 0-7 on the JAX pipeline's key stream and
        the JAX detector's draw of every pair (golden_terrain_loops.npz):
-       launches A 1, B 1, F 1 a frame, C and E 1 a tracked pair plus 1 a
+       launches and Surf calls as `vo`'s, C and E 1 a tracked pair plus 1 a
        verification; the verified pairs JAX's; the verdicts JAX's wherever
        JAX's inliers lie more than 10 % from 60; optimize_with_loops[_sim3]
        on JAX's own frames, closures and depths at PG_TOL; per run the JAX
@@ -162,8 +165,8 @@ import torch
 
 from cuda_surf_tpu_torch import (BatchSurf, Intrinsics, SlamPipeline, Surf,
                                  SurfConfig, _build, detect_and_compute,
-                                 detect_and_compute_batch, match_keypoints,
-                                 track_pair)
+                                 detect_and_compute_batch, frontend,
+                                 match_keypoints, track_pair)
 from cuda_surf_tpu_torch.ba import core as ba_core
 from cuda_surf_tpu_torch.ba import distributed as ba_distributed
 from cuda_surf_tpu_torch.config import (BATCH_FRAMES, DOUBLED_CONFIG,
@@ -735,6 +738,28 @@ def launches_since(snap) -> dict:
     return {k: _build.launch_counts[e] - snap[e] for k, e in KERNELS.items()}
 
 
+def frame_launches(i, **more):
+    """Frame i's launches in a SlamPipeline, beside `more`: its Surf runs
+    the frontend eagerly at the first frame and captures it at the second
+    (G, A, F, B each once), and from the third runs G and replays the
+    graph of the rest, which launches nothing through `_build.launch`."""
+    return dict(G=1, **(dict(A=1, B=1, F=1) if i < 2 else {}), **more)
+
+
+def check_calls(name, calls, frames):
+    """`calls`, a difference of `frontend.graph_counts` over the first
+    `frames` frames of a SlamPipeline, must be its Surf's: the eager
+    pipeline at frame 0, the capture at frame 1, a replay at each later
+    one, so that frames 2 on ran the graph whose A, F and B launches were
+    counted at the capture."""
+    want = {("frame", what): n for what, n in
+            (("eager", min(frames, 1)), ("capture", min(frames - 1, 1)),
+             ("replay", frames - 2)) if n > 0}
+    if dict(calls) != want:
+        raise AssertionError(f"{name}: Surf calls {dict(calls)}, "
+                             f"expected {want}")
+
+
 def read_counts(name, expected, snap):
     """The launch counts since `snap`, held to `expected` by
     check_launches."""
@@ -1116,19 +1141,21 @@ def run_vo_path():
             pipe = SlamPipeline(SurfConfig(**VO_CONFIG), intrinsics=intr,
                                 seed=seed, device="cuda", **kw)
             snap = _build.launch_counts.copy()
+            calls = frontend.graph_counts.copy()
             for i, f in enumerate(frames):
                 before = _build.launch_counts.copy()
                 pipe.process(f, raw=seed_raws[i - 1] if i else None)
                 torch.cuda.synchronize()
                 check_launches(f"vo {run} seed {seed} frame {i}",
                                launches_since(before),
-                               dict(A=1, B=1, F=1, G=1,
-                                    **({"C": 1, "E": 1} if i else {})))
-            total = read_counts(f"vo {run}", {"A": len(frames),
-                                              "B": len(frames),
+                               frame_launches(i, **({"C": 1, "E": 1}
+                                                    if i else {})))
+                check_calls(f"vo {run} seed {seed} frame {i}",
+                            frontend.graph_counts - calls, i + 1)
+            total = read_counts(f"vo {run}", {"A": 2, "B": 2,
                                               "C": len(frames) - 1,
                                               "E": len(frames) - 1,
-                                              "F": len(frames),
+                                              "F": 2,
                                               "G": len(frames)}, snap)
             counts = counts or total
             traj = pipe.trajectory()
@@ -1299,6 +1326,7 @@ def run_loops_phase():
                             seed=seed, loop_detect=True, loop_min_gap=gap,
                             device="cuda")
         snap = _build.launch_counts.copy()
+        calls = frontend.graph_counts.copy()
         for f, img in enumerate(frames):
             before = _build.launch_counts.copy()
             n_ver = pipe._detector.n_verifications if f else 0
@@ -1309,12 +1337,14 @@ def run_loops_phase():
             pairs = 1 + n_ver      # the tracked pair and each verification
             check_launches(f"loops seed {seed} frame {f}",
                            launches_since(before),
-                           dict(A=1, B=1, F=1, G=1,
-                                **({"C": pairs, "E": pairs} if f else {})))
+                           frame_launches(f, **({"C": pairs, "E": pairs}
+                                                if f else {})))
+            check_calls(f"loops seed {seed} frame {f}",
+                        frontend.graph_counts - calls, f + 1)
         det = pipe._detector
         total = read_counts(f"loops seed {seed}", {
-            "A": len(frames), "B": len(frames), "F": len(frames),
-            "G": len(frames), "C": len(frames) - 1 + det.n_verifications,
+            "A": 2, "B": 2, "F": 2, "G": len(frames),
+            "C": len(frames) - 1 + det.n_verifications,
             "E": len(frames) - 1 + det.n_verifications}, snap)
         counts = counts or total
         jver = [tuple(int(x) for x in v[1:]) for v in g["ver"]

@@ -217,6 +217,31 @@ def record_launches():
         _recorded = None
 
 
+_held = None        # inside holding(): what `keep` was given
+
+
+@contextlib.contextmanager
+def holding():
+    """Within the block `keep` adds what it is given to the yielded list.
+    A CUDA graph captured in the block holds that list: its replays read
+    the cached device tables its launches were given, which their caches
+    may drop, but the graph may not."""
+    global _held
+    outer, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = outer
+
+
+def keep(obj):
+    """`obj`, a cached table whose device memory a launch reads, kept in
+    the open `holding()` list if there is one."""
+    if _held is not None:
+        _held.append(obj)
+    return obj
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

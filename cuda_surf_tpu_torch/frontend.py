@@ -5,20 +5,26 @@ Mirror of Surfor::detectAndCompute (surf.cpp:205-355): integral image ->
 kernel A (response layers + NMS masks of all octaves) -> kernel F
 (compaction and subpixel walk) -> makePoint -> kernel D (orientation,
 unless upright) -> kernel B (descriptor rows) -> L2 normalise.  Matching
-runs kernel C.  PyTorch runs eagerly, so there is nothing to compile; the
-kernels are built at their first launch.
+runs kernel C.  The module functions run eagerly; the kernels are built
+at their first launch.
 
 The eager glue between the kernels is launch-bound: makePoint of one
 frame is about a hundred small launches.  `detect_and_compute_batch`
 runs F, makePoint, D and B once over the union of B frames' candidates,
-so a batch pays them once and not B times.
+so a batch pays them once and not B times.  On the card `Surf` replays
+all of it after kernel G as a CUDA graph, one a shape, from a shape's
+second call on (`_Graph`); `graph_counts` counts its calls by what they
+did.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
+from . import _build
 from ._build import require_device
 from .config import SurfConfig
 from .types import Keypoints, Matches, compact
@@ -29,6 +35,12 @@ from .ops.descriptor import describe
 from .ops.matcher import match_keypoints
 from .ops.orientation import assign_orientations
 from .utils.timing import span
+
+# (path, what) -> `Surf` calls: path "frame" (`detect_and_compute`) or
+# "batch" (`detect_and_compute_batch`); what "eager", "capture" (the call
+# that made its shape's CUDA graph) or "replay".  Counted on the host: no
+# launch.  Read a difference of two snapshots (`graph_counts.copy()`).
+graph_counts: collections.Counter = collections.Counter()
 
 
 def _make_keypoints(ii, cand, cfg: SurfConfig):
@@ -95,6 +107,13 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
     h, w = image.shape
     with span("surf.integral"):
         ii = integral_image(image, cfg.doubled)
+    return _frame_from_integral(ii, h, w, cfg, compute_descriptors)
+
+
+def _frame_from_integral(ii: torch.Tensor, h: int, w: int, cfg: SurfConfig,
+                         compute_descriptors: bool = True):
+    """`detect_and_compute` from the frame's integral image on: kernels A,
+    F, makePoint, D (unless upright) and B."""
     with span("surf.pyramid"):
         pyr, masks = fused_pyramid(ii, cfg, h, w)
     with span("surf.detect"):
@@ -111,7 +130,7 @@ def detect_and_compute(image: torch.Tensor, cfg: SurfConfig,
                     valid=valid, count=count)
     if not compute_descriptors:
         return kps, torch.zeros((cfg.max_pts, cfg.nfeatures),
-                                dtype=torch.float32, device=image.device)
+                                dtype=torch.float32, device=ii.device)
     with span("surf.describe"):
         desc = describe(ii, cfg, x, y, scale, ori, valid)
         desc = torch.where(valid[:, None], desc, 0.0)
@@ -205,25 +224,37 @@ def _to_uint8(image, device) -> torch.Tensor:
     return img.to(device, torch.uint8)
 
 
-class _BatchGraph:
-    """`detect_and_compute_batch` at one (B, H, W) shape: kernel G run
-    eagerly on the caller's frames into an integral-image stack of its
-    own, then the rest of the pipeline captured as a CUDA graph over that
-    stack, so the graph's launch overlaps G.  The pipeline has no host
+class _Graph:
+    """A `Surf` call at one shape on the card, a frame's (H, W) or a
+    batch's (B, H, W): kernel G run eagerly on the caller's frames into an
+    integral image of its own, then the rest of the pipeline (`body`:
+    `_frame_from_integral` or `_from_integral`) captured as a CUDA graph
+    over it, so the graph's launch overlaps G.  The pipeline has no host
     sync and no shape that depends on the data, so the graph is the eager
     pipeline's launches, bit for bit; its outputs live in the graph's
-    memory pool and are copied out on each call."""
+    memory pool and are copied out on each call.  The body reaches
+    `_make_keypoints` and `describe` through this module's globals while
+    it is captured, as the eager pipeline does at each call.  `held` keeps
+    the cached plans and tables that the captured launches read
+    (`_build.keep`), so their caches may drop them."""
 
-    def __init__(self, images: torch.Tensor, cfg: SurfConfig):
+    def __init__(self, body, images: torch.Tensor, cfg: SurfConfig):
         self.cfg = cfg
-        self.ii = integral_image(images, cfg.doubled)
+        with span("surf.integral"):
+            self.ii = integral_image(images, cfg.doubled)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = _from_integral(self.ii, *images.shape, cfg)
+        with _build.holding() as self.held, torch.cuda.graph(self.graph):
+            self.out = body(self.ii, *images.shape, cfg)
 
     def __call__(self, images: torch.Tensor):
+        """The pipeline on `images`: G into the graph's integral image,
+        then the replay."""
         with span("surf.integral"):
             integral_image(images, self.cfg.doubled, out=self.ii)
+        return self.replay()
+
+    def replay(self):
+        """The graph on the integral image it holds; outputs of their own."""
         self.graph.replay()
         kps, desc = self.out
         return Keypoints(*[f.clone() for f in kps]), desc.clone()
@@ -235,35 +266,50 @@ class Surf:
     `Surf(cfg, device="cuda")` runs the hand-written kernels and raises if
     no card is present; it never runs on the CPU instead.
     `device="cpu"` runs the plain PyTorch twins.
+
+    On the card the first call at a shape runs the pipeline eagerly (and
+    builds what it builds at first use); the second captures all of it
+    after kernel G as a CUDA graph (`_Graph`), and every later call at the
+    shape runs G on its frames and replays the graph: G's call and one
+    graph launch in place of ~160 launches a frame or ~200 a batch, so
+    the card no longer waits on the host between them.  One graph a
+    shape, frame or batch; every call returns tensors of its own.  On the
+    CPU every call is eager.
     """
 
     def __init__(self, cfg: SurfConfig | None = None, device="cuda", **kw):
         self.cfg = cfg if cfg is not None else SurfConfig(**kw)
         self.device = require_device(device, "Surf")
-        self._batch_graphs = {}     # (B, H, W) -> None (seen once) | graph
+        self._graphs = {}     # shape -> None (seen once) | _Graph
 
     def detect_and_compute(self, image):
-        return detect_and_compute(_to_uint8(image, self.device), self.cfg)
+        """An (H, W) frame -> keypoints and (max_pts, nfeatures)
+        descriptors."""
+        return self._run("frame", detect_and_compute, _frame_from_integral,
+                         _to_uint8(image, self.device))
 
     def detect_and_compute_batch(self, images):
-        """(B, H, W) frames -> batched keypoints and descriptors.
+        """(B, H, W) frames -> batched keypoints and descriptors."""
+        return self._run("batch", detect_and_compute_batch, _from_integral,
+                         _to_uint8(images, self.device))
 
-        On the card the first call at a shape runs the pipeline eagerly
-        (and builds what it builds at first use); the second captures all
-        of it after kernel G as a CUDA graph, and that call and every
-        later one at the shape run G on the frames and replay the graph:
-        two launches in place of ~200, so the card no longer waits on the
-        host between them.  Every call returns tensors of its own."""
-        images = _to_uint8(images, self.device)
-        if images.device.type != "cuda":
-            return detect_and_compute_batch(images, self.cfg)
-        key = tuple(images.shape)
-        if key not in self._batch_graphs:
-            self._batch_graphs[key] = None
-            return detect_and_compute_batch(images, self.cfg)
-        if self._batch_graphs[key] is None:
-            self._batch_graphs[key] = _BatchGraph(images, self.cfg)
-        return self._batch_graphs[key](images)
+    def _run(self, path: str, eager, body, images: torch.Tensor):
+        """`eager` (the module function) at a shape's first call or on the
+        CPU; the graph of `body` from its second call on the card."""
+        key = tuple(images.shape)     # (H, W) frames, (B, H, W) batches
+        on_card = images.device.type == "cuda"
+        if not on_card or key not in self._graphs:
+            out = eager(images, self.cfg)
+            if on_card:     # a shape whose eager call raised is not kept
+                self._graphs[key] = None
+            graph_counts[path, "eager"] += 1
+            return out
+        if self._graphs[key] is None:
+            graph = self._graphs[key] = _Graph(body, images, self.cfg)
+            graph_counts[path, "capture"] += 1
+            return graph.replay()
+        graph_counts[path, "replay"] += 1
+        return self._graphs[key](images)
 
     def match(self, kp1, desc1, kp2, desc2) -> Matches:
         return match_keypoints(kp1, desc1, kp2, desc2)

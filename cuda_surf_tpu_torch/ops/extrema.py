@@ -286,8 +286,10 @@ def detect(pyr, scheds, cfg: SurfConfig, cand_masks, cap: int | None = None,
     cap = (cfg.max_candidates if cap is None else cap) * B
     if cap < 1:
         raise ValueError(f"detect: capacity {cap}")
-    plan = extrema_plan(tuple(shapes), tuple(s.borders for s in scheds),
-                        tuple(s.octave for s in scheds), B, str(dev))
+    plan = _build.keep(extrema_plan(tuple(shapes),
+                                    tuple(s.borders for s in scheds),
+                                    tuple(s.octave for s in scheds), B,
+                                    str(dev)))
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
     fields = torch.empty((4, cap), dtype=torch.float32, device=dev)
     ints = torch.empty(2 * cap + 2 + 4 * plan.nchunks, dtype=torch.int32,

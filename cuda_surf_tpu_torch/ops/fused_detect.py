@@ -211,7 +211,7 @@ def fused_pyramid(ii: torch.Tensor, cfg: SurfConfig, h: int, w: int):
     _build.require_cuda(ii, "ii", torch.int32)
     ih, iw = ii.shape[-2:]
     B = ii.shape[0] if ii.ndim == 3 else 1
-    plan = pyramid_plan(cfg, h, w, ih, iw, str(ii.device))
+    plan = _build.keep(pyramid_plan(cfg, h, w, ih, iw, str(ii.device)))
     layers = torch.empty(B * plan.total, dtype=torch.float32, device=ii.device)
     masks = torch.empty(B * plan.total, dtype=torch.bool, device=ii.device)
     pre_t = float(np.float32(0.8) * np.float32(cfg.thresh))

@@ -31,9 +31,9 @@ def integral_image(img: torch.Tensor, doubled: bool = False,
     frame the frontend takes.
 
     CUDA: kernel G, one library call of at most three launches whatever B;
-    the tensor must be a contiguous uint8 (H, W) or (B, H, W); `out`, an
-    int32 (B, H+1, W+1) tensor (doubled: (B, 2H, 2W)), is written in
-    place of a new one.  CPU: the twin `_integral_plain`."""
+    the tensor must be a contiguous uint8 (H, W) or (B, H, W); `out`, a
+    contiguous int32 tensor of the result's shape, is written in place of
+    a new one.  CPU: the twin `_integral_plain`."""
     dev = img.device
     if dev.type == "cpu":
         res = _integral_plain(img, doubled)
@@ -48,6 +48,8 @@ def integral_image(img: torch.Tensor, doubled: bool = False,
         img = _upsample(img.to(torch.int32)).to(torch.uint8)
     B, h, w = img.shape if img.ndim == 3 else (1, *img.shape)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if out is not None and out.ndim == 2:
+        out = out[None]
     out = _integral_cuda(img, band_rows(B, h, sms), out)
     return out if img.ndim == 3 else out[0]
 

@@ -289,7 +289,7 @@ def assign_orientations(ii: torch.Tensor, cfg: SurfConfig, x, y, scale,
     if any(t.shape != (K,) for t in fields):
         raise ValueError("assign_orientations: x, y, scale, valid and frame "
                          "must all be (K,)")
-    ftab = tables(ii.device)["packed"]
+    ftab = _build.keep(tables(ii.device)["packed"])
     out = torch.empty((K,), dtype=torch.float32, device=ii.device)
     nframes, ih, iw = (0, *ii.shape) if frame is None else ii.shape
     with torch.cuda.device(ii.device):

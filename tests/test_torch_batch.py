@@ -233,6 +233,20 @@ def _frame_of_t(kb, i):
     return Keypoints(*[f[i] for f in kb])
 
 
+def test_surf_on_the_cpu_stays_eager(torch_batch):
+    """On the CPU `Surf` captures no graph: every call at a shape, however
+    many, is counted eager, and each equals the module function's
+    output."""
+    frames, surf, _ = torch_batch
+    before = cst.frontend.graph_counts.copy()
+    for f in (0, 1, 2, 0):
+        kp, d = surf.detect_and_compute(frames[f])
+        kw, dw = cst.detect_and_compute(torch.as_tensor(frames[f]), surf.cfg)
+        assert all(torch.equal(a, b) for a, b in zip(kp, kw))
+        assert torch.equal(d, dw)
+    assert cst.frontend.graph_counts - before == {("frame", "eager"): 4}
+
+
 def test_batchsurf_on_cuda_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
