@@ -48,9 +48,10 @@ path runs it at the rotated config.  The script
      frames in one call and on a 640x480 terrain frame at the VO config:
      every output field and the counts bit for bit, one launch a call, and
      how many step-1 movers there were beside the walker set; G, the
-     integral image, on the main frame, the batch's 8 frames in one call,
-     the 640x480 terrain frame and the doubled main frame: bit for bit, one
-     launch a call);
+     integral image, on the main frame, the batch's 8 frames in one call
+     and the 640x480 terrain frame, and doubled (its own entry point) on
+     the main frame and a stack of 32 1280x960 frames: bit for bit, one
+     library call a call);
   4. for each path, snapshots `_build.launch_counts`, runs it, checks that
      every kernel of the path launched (kernels A and G once per frame on
      the pair paths, once per batch on the batch path) and no other did,
@@ -579,13 +580,15 @@ def check_kernel_f(cases, card):
 
 def check_kernel_g(cases, card):
     """Kernel G vs the twin `_integral_plain` on the card, bit for bit, one
-    library call a call; each case (name, frame or stack, doubled)."""
+    library call a call (`surf_integral`, doubled `surf_integral_doubled`)
+    and no other; each case (name, frame or stack, doubled)."""
     rows = {}
     for name, frames, doubled in cases:
-        before = _build.launch_counts["surf_integral"]
+        before = _build.launch_counts.copy()
         got = integral_image(frames, doubled)
-        if _build.launch_counts["surf_integral"] != before + 1:
-            raise AssertionError(f"kernel G {name}: not one launch a call")
+        entry = KERNELS["G_doubled" if doubled else "G"]
+        if _build.launch_counts - before != {entry: 1}:
+            raise AssertionError(f"kernel G {name}: not one {entry} call")
         if not torch.equal(got, _integral_plain(frames, doubled)):
             raise AssertionError(f"kernel G {name}: differs from the twin")
         rows[name] = dict(shape=list(frames.shape), doubled=doubled,
@@ -730,7 +733,8 @@ def load_golden(name, config):
 KERNELS = {"A": "surf_pyramid", "B": "surf_describe",
            "B_stacked": "surf_describe_stacked", "B_step": "surf_describe_step",
            "C": "surf_best2", "D": "surf_orient", "E": "surf_fivepoint",
-           "F": "surf_extrema", "G": "surf_integral"}
+           "F": "surf_extrema", "G": "surf_integral",
+           "G_doubled": "surf_integral_doubled"}
 
 
 def launches_since(snap) -> dict:
@@ -1720,6 +1724,8 @@ def main() -> int:
     for name in ("rotated", "doubled", "doubled_rotated"):
         expected = dict(pair_kernels, **({} if cfgs[name].upright
                                          else {"D": 2}))
+        if cfgs[name].doubled:     # G's doubled passes, its own entry
+            expected["G_doubled"] = expected.pop("G")
         run_path(name, cfgs[name], frames, golden[name], expected)
     run_step_routed_path(cfg, frames, golden["main"], descs)
     kb, db = run_batch_path(cfg, batch_frames, golden["batch"])
@@ -1735,7 +1741,9 @@ def main() -> int:
         ("main_left", frames_dev[0], False),
         ("batch8", torch.stack(batch_dev), False),
         ("vo_640x480", torch.as_tensor(vo_frame).cuda(), False),
-        ("doubled", frames_dev[0], True)], card)
+        ("doubled", frames_dev[0], True),
+        ("doubled_stack32", torch.as_tensor(main_batch(32)).cuda(), True)],
+        card)
     check_kernel_c(descs[0], descs[1], kps[1].valid)
     check_kernel_c(rows128[0], rows128[1], kps_dev[1][1].valid)
     check_kernel_c_pairs(db[:-1].contiguous(), db[1:].contiguous(),

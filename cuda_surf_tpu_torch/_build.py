@@ -75,6 +75,9 @@ _SIGNATURES = {
                      _P, _P],
     # src, nframes, h, w, rows, vec, scratch, out, stream
     "surf_integral": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # src, nframes, h, w, rows (of the doubled grid), vec, scratch, out,
+    # stream
+    "surf_integral_doubled": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

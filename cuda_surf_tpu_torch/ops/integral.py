@@ -4,8 +4,9 @@
 a frame or a whole (B, H, W) stack, no host sync) on a CUDA tensor and
 runs the plain twin `_integral_plain`, two int32 `cumsum`s, on a CPU one;
 any other device raises.  The JAX package's triangular MXU scans and
-phase planes are a TPU workaround and are not ported.  Doubled mode
-upsamples the frame 2x before the sums, in eager torch on either device.
+phase planes are a TPU workaround and are not ported.  Doubled mode sums
+the frame upsampled 2x: kernel G's doubled entry point makes each
+upsampled value inside its passes; the twin upsamples first (`_upsample`).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ def integral_image(img: torch.Tensor, doubled: bool = False,
     multiples of 1/4 below 2^10, and 255*2H*2W stays below 2^31 for any
     frame the frontend takes.
 
-    CUDA: kernel G, one library call of at most three launches whatever B;
-    the tensor must be a contiguous uint8 (H, W) or (B, H, W); `out`, a
+    CUDA: kernel G, one library call of at most three launches whatever B
+    (`surf_integral`, or `surf_integral_doubled` with `doubled`); the
+    tensor must be a contiguous uint8 (H, W) or (B, H, W); `out`, a
     contiguous int32 tensor of the result's shape, is written in place of
     a new one.  CPU: the twin `_integral_plain`."""
     dev = img.device
@@ -44,13 +46,12 @@ def integral_image(img: torch.Tensor, doubled: bool = False,
     if img.ndim not in (2, 3) or 0 in img.shape:
         raise ValueError(f"integral_image: expected a (H, W) frame or a "
                          f"(B, H, W) stack, got {tuple(img.shape)}")
-    if doubled:    # the rounded averages of uint8 values are uint8 values
-        img = _upsample(img.to(torch.int32)).to(torch.uint8)
     B, h, w = img.shape if img.ndim == 3 else (1, *img.shape)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if out is not None and out.ndim == 2:
         out = out[None]
-    out = _integral_cuda(img, band_rows(B, h, sms), out)
+    gh = 2 * h - 1 if doubled else h        # the rows the sums run over
+    out = _integral_cuda(img, band_rows(B, gh, sms), out, doubled)
     return out if img.ndim == 3 else out[0]
 
 
@@ -62,36 +63,45 @@ def band_rows(nframes: int, h: int, sms: int) -> int:
 
 
 def _integral_cuda(src: torch.Tensor, rows: int,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
+                   out: torch.Tensor | None = None,
+                   doubled: bool = False) -> torch.Tensor:
     """Kernel G on a contiguous uint8 (H, W) or (B, H, W) CUDA tensor at
-    bands of `rows` rows -> int32 (B, H+1, W+1), in `out` if given."""
+    bands of `rows` rows -> int32 (B, H+1, W+1), in `out` if given; with
+    `doubled`, over the (2H-1, 2W-1) grid of the upsampled frames ->
+    (B, 2H, 2W)."""
     B, h, w = src.shape if src.ndim == 3 else (1, *src.shape)
-    if w > 16 * 1024 or B > 65535:
+    gh, gw = (2 * h - 1, 2 * w - 1) if doubled else (h, w)
+    if gw > 16 * 1024 or B > 65535:
         raise ValueError(f"integral_image: {B} frames of width {w}; kernel "
-                         "G takes at most 65535 frames of width 16384")
+                         "G takes at most 65535 frames and sums rows of at "
+                         "most 16384")
     dev = src.device
+    shape = (B, gh + 1, gw + 1)
     if out is None:
-        out = torch.empty((B, h + 1, w + 1), dtype=torch.int32, device=dev)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
     else:
         _build.require_cuda(out, "integral_image: out", torch.int32)
-        if tuple(out.shape) != (B, h + 1, w + 1) or out.device != dev:
+        if tuple(out.shape) != shape or out.device != dev:
             raise ValueError(f"integral_image: out is {tuple(out.shape)} on "
-                             f"{out.device}, expected {(B, h + 1, w + 1)} "
-                             f"on {dev}")
-    nbands = -(-h // rows)     # one band needs no scratch: a null pointer
-    scratch = torch.empty(B * nbands * (-(-w // 16) * 16) if nbands > 1
+                             f"{out.device}, expected {shape} on {dev}")
+    nbands = -(-gh // rows)    # one band needs no scratch: a null pointer
+    scratch = torch.empty(B * nbands * (-(-gw // 16) * 16) if nbands > 1
                           else 0, dtype=torch.int32, device=dev)
-    vec = w % 16 == 0 and src.data_ptr() % 16 == 0
+    # one load of 16 source bytes a row, or of 8 under 16 doubled columns
+    load = 8 if doubled else 16
+    vec = w % load == 0 and src.data_ptr() % load == 0
     with torch.cuda.device(dev):
-        _build.launch("surf_integral", _build.ptr(src), B, h, w, rows,
-                      int(vec), _build.ptr(scratch), _build.ptr(out),
+        _build.launch("surf_integral_doubled" if doubled else "surf_integral",
+                      _build.ptr(src), B, h, w, rows, int(vec),
+                      _build.ptr(scratch), _build.ptr(out),
                       _build.stream(dev))
     return out
 
 
 def _upsample(src: torch.Tensor) -> torch.Tensor:
     """int32 (..., h, w) -> (..., 2h-1, 2w-1): the frames upsampled 2x
-    bilinearly, rounding half to even (integralDoubleRow0U2)."""
+    bilinearly, rounding half to even (integralDoubleRow0U2); the twin's
+    part of what kernel G's doubled passes make in place."""
     *lead, h, w = src.shape
     rn = lambda a, f: torch.round(a.to(torch.float32) * f).to(torch.int32)
     up = torch.zeros((*lead, 2 * h - 1, 2 * w - 1), dtype=torch.int32,

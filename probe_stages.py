@@ -32,12 +32,13 @@ doubled pair paths like the first table.
 With --kernels it times the kernels alone instead, at the main path's
 shapes: A on one frame, on the stack of BATCH_FRAMES frames and on the
 doubled frame (a 2560x1920 integral image); G, the integral image, on
-frame 0 (G_frame), on a stack of 32 frames (G_stack32) and on a 640x480
-terrain frame (G_vo); F, the compaction and subpixel walk, on frame 0
-(F_frame), on the stack (F_stack) and on the 640x480 terrain frame at the
-VO config (F_vo); E, the five-point solver, on the
-128 hypotheses of the track fixture's first JAX draw at gn_iters 4, as
-track_pair calls it; kernel B on frame 0's keypoints, upright / rotated x
+frame 0 (G_frame), on a stack of 32 frames (G_stack32), on a 640x480
+terrain frame (G_vo), and doubled on frame 0 (G_doubled) and the stack
+(G_doubled_stack32; its twin on the card, G_doubled_stack32_twin); F, the
+compaction and subpixel walk, on frame 0 (F_frame), on the stack (F_stack)
+and on the 640x480 terrain frame at the VO config (F_vo); E, the
+five-point solver, on the 128 hypotheses of the track fixture's first JAX
+draw at gn_iters 4, as track_pair calls it; kernel B on frame 0's keypoints, upright / rotated x
 64 / 128-d; B_stacked on every frame's slots in one launch, 64-d; B_step,
 the static-step kernel at step 4; C on the descriptors of frames 0 -> 1
 at 64-d (C_d64) and 128-d (C_d128), on the BATCH_FRAMES - 1 pairs of
@@ -120,7 +121,8 @@ from cuda_surf_tpu_torch.ops import matcher_kernel
 from cuda_surf_tpu_torch.ops.descriptor import desc_geometry, l2_normalize
 from cuda_surf_tpu_torch.ops.extrema import detect
 from cuda_surf_tpu_torch.ops.fused_detect import fused_pyramid, pyramid_plan
-from cuda_surf_tpu_torch.ops.integral import integral_image
+from cuda_surf_tpu_torch.ops.integral import (_integral_plain,
+                                              integral_image)
 from cuda_surf_tpu_torch.ops.matcher_kernel import fused_best2
 from cuda_surf_tpu_torch.ops.orientation import assign_orientations
 from cuda_surf_tpu_torch.ops.patch_wavelets import descriptor_rows, step_rows
@@ -372,12 +374,14 @@ def f_work(masks, out, walker_set):
             F_OPS_BYTE * mask_bytes + F_OPS_FIT * fits + F_OPS_SLOT * slots)
 
 
-def g_work(frames):
+def g_work(frames, doubled=False):
     """Kernel G in one pass: each source byte read once, each int32 of the
-    (H+1, W+1) outputs written once; no floating-point operation."""
+    (H+1, W+1) outputs, doubled (2H, 2W), written once; no floating-point
+    operation."""
     h, w = frames.shape[-2:]
     n = frames.numel() // (h * w)
-    return (frames.numel() + 4 * n * (h + 1) * (w + 1), 0)
+    oh, ow = (2 * h, 2 * w) if doubled else (h + 1, w + 1)
+    return (frames.numel() + 4 * n * oh * ow, 0)
 
 
 def occupancy(h: int, w: int) -> dict:
@@ -458,10 +462,16 @@ def kernel_table(imgs, runs, card, only, tag):
         n_frames=1, h=480, w=640)[0][0]).cuda()
     if group("G_"):
         stack = torch.as_tensor(main_batch(G_STACK)).cuda()
-        for name, frames in (("G_frame", imgs[0]), ("G_stack32", stack),
-                             ("G_vo", vo)):
-            report(name, lambda: integral_image(frames),
-                   lambda: ("probe_stages.g_work", g_work(frames)))
+        for name, frames, dbl in (("G_frame", imgs[0], False),
+                                  ("G_stack32", stack, False),
+                                  ("G_vo", vo, False),
+                                  ("G_doubled", imgs[0], True),
+                                  ("G_doubled_stack32", stack, True)):
+            report(name, lambda: integral_image(frames, dbl),
+                   lambda: ("probe_stages.g_work", g_work(frames, dbl)))
+        # the twin on the card, for the bring-up table's "ms / twin ms"
+        report("G_doubled_stack32_twin", lambda: _integral_plain(stack, True),
+               "the twin: eager torch, no library call")
     if group("F_"):
         for name, c, frames in (("F_frame", cfg, imgs[0]),
                                 ("F_stack", cfg, imgs),

@@ -64,7 +64,8 @@ def test_surf_frame_replays_its_graph(frames, mode):
     before = _build.launch_counts.copy()
     got.append(surf.detect_and_compute(frames[order[2]]))
     torch.cuda.synchronize()
-    assert _build.launch_counts - before == {"surf_integral": 1}
+    g = "surf_integral_doubled" if cfg.doubled else "surf_integral"
+    assert _build.launch_counts - before == {g: 1}
     got.append(surf.detect_and_compute(frames[order[3]]))
     torch.cuda.synchronize()
     assert frontend.graph_counts - counts == {

@@ -9,15 +9,21 @@ tests/conftest.py, with the other card tests:
 The sums are integers, so G equals the twin bit for bit: on 1280x960 and
 640x480 frames and a stack of 32 1280x960 frames; on shapes whose width is
 no multiple of 16 (the byte-load path), with one row or one column; at
-every band length from one row to the whole frame; on the doubled path;
-and on all-255 frames at the doubled grid's size (the int32 ceiling).  One
-call is one count of `surf_integral` on `_build.launch_counts` (its at
-most three launches), whatever B, and makes no host synchronisation.
+every band length from one row to the whole frame; and on all-255 frames
+at the doubled grid's size (the int32 ceiling).  Doubled mode, G's own
+passes over the 2x upsampled grid, equals the twin's upsample and sums the
+same way: on the 1280x960 frame, a stack of 32, odd and unaligned widths,
+every band length, and all-255 frames.  One call is one count of
+`surf_integral` (doubled: `surf_integral_doubled`) on
+`_build.launch_counts`, whatever B: at most three device operations, all
+G's kernels (the doubled ones named so), and no host synchronisation.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity
 
 from cuda_surf_tpu_torch import _build
 from cuda_surf_tpu_torch.ops.integral import (_integral_cuda, _integral_plain,
@@ -70,38 +76,69 @@ def test_kernel_g_edge_shapes_and_band_lengths(cuda_device):
 
 
 def test_kernel_g_doubled_path_and_int32_ceiling(cuda_device):
-    """The doubled path (eager upsample, then G) against the plain doubled
-    path, on a frame and on a stack of 4; all-255 frames at the doubled
-    grid's size, 1919x2559 (the last sum 255 * 1919 * 2559 =
-    1,252,276,455), directly and through the doubled path."""
+    """G's doubled passes against the twin's upsample and sums: the
+    1280x960 frame, a stack of 32 (each frame also equal to its own call),
+    widths that are no multiple of 8 or 16, one row or one column, frames
+    off 8-byte alignment, every band length over the doubled grid; all-255
+    frames at the doubled grid's size, 1919x2559 (the last sum 255 * 1919
+    * 2559 = 1,252,276,455), directly and through the doubled path, on a
+    frame and a stack."""
     _check(_frames((960, 1280), 3, cuda_device), doubled=True)
-    _check(_frames((4, 240, 320), 4, cuda_device), doubled=True)
+    stack = _frames((32, 960, 1280), 4, cuda_device)
+    got = _check(stack, doubled=True)
+    for f in (0, 13, 31):
+        assert torch.equal(got[f], integral_image(stack[f], True))
+    for shape in [(1, 1), (2, 2), (7, 13), (1, 4097), (4097, 1),
+                  (241, 333), (3, 7, 13), (5, 241, 333), (2, 17, 1288)]:
+        _check(_frames(shape, sum(shape), cuda_device), doubled=True)
+    # a width of 1280 whose rows start one byte off 8-byte alignment
+    _check(_frames((1 + 9 * 1280,), 8, cuda_device)[1:].view(9, 1280),
+           doubled=True)
+    img = _frames((3, 121, 168), 7, cuda_device)
+    want = _integral_plain(img, True)
+    for rows in (1, 2, 3, 8, 29, 240, 241, 1000):
+        got = _integral_cuda(img, rows, doubled=True)
+        assert torch.equal(got, want), rows
+    assert torch.equal(_integral_cuda(img[1], 5, doubled=True)[0], want[1])
     full = torch.full((1919, 2559), 255, dtype=torch.uint8,
                       device=cuda_device)
     assert int(_check(full)[-1, -1]) == 255 * 1919 * 2559
-    white = torch.full((960, 1280), 255, dtype=torch.uint8,
+    white = torch.full((2, 960, 1280), 255, dtype=torch.uint8,
                        device=cuda_device)
-    assert int(_check(white, doubled=True)[-1, -1]) == 255 * 1919 * 2559
+    ii = _check(white, doubled=True)
+    assert ii[:, -1, -1].tolist() == [255 * 1919 * 2559] * 2
 
 
 def test_kernel_g_launches_sync_and_refusals(cuda_device):
-    """One call: one count of `surf_integral` and one call of the kernel
-    library, whatever B, and no host synchronisation.  A wrong dtype,
-    rank, device or layout raises."""
+    """One call: one count of `surf_integral` (doubled:
+    `surf_integral_doubled`) and one call of the kernel library, whatever
+    B, no other launch and no host synchronisation.  A wrong dtype, rank,
+    device or layout raises."""
     for shape in [(960, 1280), (32, 960, 1280)]:
-        img = _frames(shape, 5, cuda_device)
-        integral_image(img)                   # built and loaded
-        torch.cuda.synchronize()
-        before = _build.launch_counts["surf_integral"]
-        with _build.record_launches() as rec:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                integral_image(img)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        assert _build.launch_counts["surf_integral"] == before + 1
-        assert [name for name, *_ in rec] == ["surf_integral"]
+        for doubled in (False, True):
+            img = _frames(shape, 5, cuda_device)
+            integral_image(img, doubled)              # built and loaded
+            torch.cuda.synchronize()
+            entry = "surf_integral_doubled" if doubled else "surf_integral"
+            before = _build.launch_counts.copy()
+            with _build.record_launches() as rec:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    integral_image(img, doubled)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert _build.launch_counts - before == {entry: 1}
+            assert [name for name, *_ in rec] == [entry]
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                integral_image(img, doubled)
+                torch.cuda.synchronize()
+            ops = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            assert 1 <= len(ops) <= 3 and all(
+                ("integral_doubled_" in n) == doubled and "integral_" in n
+                for n in ops), ops
 
     before = _build.launch_counts["surf_integral"]
     img = _frames((48, 64), 6, cuda_device)

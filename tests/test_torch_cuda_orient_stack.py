@@ -127,14 +127,17 @@ def test_rotated_batch_equals_the_single_frame_path(stack):
 
 
 @pytest.mark.parametrize("mode", [dict(upright=True), dict(),
-                                  dict(extended=True), dict(doubled=True)],
-                         ids=["upright", "rotated", "extended", "doubled"])
+                                  dict(extended=True), dict(doubled=True),
+                                  dict(upright=True, doubled=True)],
+                         ids=["upright", "rotated", "extended", "doubled",
+                              "doubled_upright"])
 def test_surf_batch_replays_its_graph(stack, mode):
     """`Surf.detect_and_compute_batch` runs eagerly at a shape's first
     call and from its second runs kernel G and replays a CUDA graph of the
     rest: every call equals the eager pipeline on its own frames bit for
-    bit, a replaying call launches kernel G alone through an entry point,
-    and a later call leaves an earlier call's tensors as they were."""
+    bit, a replaying call launches kernel G alone through an entry point
+    (doubled: its doubled one), and a later call leaves an earlier call's
+    tensors as they were."""
     frames = stack[0][:4]
     other = frames.flip(0)
     cfg = cst.SurfConfig(**dict(ROTATED_CONFIG, **mode))
@@ -146,7 +149,8 @@ def test_surf_batch_replays_its_graph(stack, mode):
     before = _build.launch_counts.copy()
     third = surf.detect_and_compute_batch(frames)
     torch.cuda.synchronize()
-    assert _build.launch_counts - before == {"surf_integral": 1}
+    g = "surf_integral_doubled" if cfg.doubled else "surf_integral"
+    assert _build.launch_counts - before == {g: 1}
     for (kp, d), (kw, dw) in ((first, want[0]), (second, want[1]),
                               (third, want[0])):
         for a, b in zip(kp, kw):
